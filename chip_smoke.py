@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one H100 and check it.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card of capability (9, 0), `nvcc` and the repository's
+`src/` beside this file; exits non-zero without printing a result
+otherwise. Phases, each of which fails the run:
+
+  1. card: name and power limit (nvidia-smi), capability (9, 0);
+  2. build: the three CUDA kernels from src/repro_torch/kernels/csrc,
+     compiled in parallel into src/repro_torch/kernels/build/;
+  3. graph: the n = 2^20 R-MAT image, `rmat_graph(2**20, 2**23, seed=1,
+     symmetric=True)` → normalized adjacency → 64×64 blocks with at least
+     4 entries, uploaded to the card in a GraphOperator;
+  4. kernels: each kernel at the shapes the solve gives it, held against
+     its plain PyTorch version on the same inputs, timed beside the plain
+     version, one PyTorch library call and the card's bound;
+  5. end to end: `solve(op, 8, method="krylov_schur", block_size=4,
+     num_blocks=8, tol=1e-5, max_iters=100)` on a CUDA TieredStore, with
+     the launch counters zeroed just before and read just after; it must
+     converge with true residuals ≤ 1e-4·max(1, |θ|) and every kernel
+     must have launched;
+  6. small input, before 5: the same solver on a 1,200-vertex graph
+     against numpy's dense eigvalsh, rtol 1e-5;
+  7. breakdown: a short profiled solve (device time by kernel and copy,
+     host spans for store.get / store.demote / operator.matmat).
+
+Then one JSON line of kernels, the card line, and the final result line.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+
+N_LOG2, NNZ_LOG2, GRAPH_SEED = 20, 23, 1
+BLOCK, MIN_BLOCK_NNZ = (64, 64), 4
+NEV, BLOCK_SIZE, NUM_BLOCKS, TOL, MAX_ITERS = 8, 4, 8, 1e-5, 100
+RESID_TOL = 1e-4
+KERNEL_TOL = 1e-5   # |kernel − plain| ≤ KERNEL_TOL · Σ|terms|, per element
+REPS = 10
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ------------------------------------------------------------------ timing
+
+class Timer:
+    """Median of CUDA-event times over REPS launches, each launched after
+    a 256 MB write that evicts the 50 MB L2 cache, as the solve's inputs
+    arrive from a copy or an earlier kernel."""
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.float32,
+                                 device=device)
+
+    def ms(self, fn, reps: int = REPS) -> float:
+        torch = self.torch
+        fn()                                 # warm up
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel_err(got, want, scale) -> float:
+    """max |got − want| / Σ|terms| elementwise (0 where both sums are 0)."""
+    diff = (got.double() - want.double()).abs()
+    scale = scale.double()
+    ok = scale > 0
+    if bool((diff[~ok] > 0).any()):
+        return float("inf")
+    return float((diff[ok] / scale[ok]).max()) if bool(ok.any()) else 0.0
+
+
+# ------------------------------------------------------------------ phases
+
+def card(torch) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    line = smi.stdout.strip().splitlines()[0]
+    cap = torch.cuda.get_device_capability(0)
+    log(f"card: {line} | capability {cap} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    if tuple(cap) != (9, 0):
+        fail(f"capability {cap} is not (9, 0): the kernels are sm_90a")
+    return line
+
+
+def build() -> float:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    path = _build.build(verbose=True)
+    _build.lib()
+    dt = time.perf_counter() - t0
+    log(f"build: {path.name} in {dt:.2f} s (nvcc {_build.nvcc_path()})")
+    return dt
+
+
+def make_graph(n_log2: int, nnz_log2: int):
+    from repro_torch.graphs import normalized_adjacency, pack_tiles
+    from repro_torch.graphs import rmat_graph
+    n = 2 ** n_log2
+    t0 = time.perf_counter()
+    r, c, v = rmat_graph(n, 2 ** nnz_log2, seed=GRAPH_SEED, symmetric=True)
+    r, c, v = normalized_adjacency(n, r, c, v)
+    t1 = time.perf_counter()
+    tm = pack_tiles(n, n, r, c, v, block_shape=BLOCK,
+                    min_block_nnz=MIN_BLOCK_NNZ)
+    t2 = time.perf_counter()
+    per_row = np.diff(tm.row_ptr)
+    isolated = n - np.unique(r).size
+    log(f"graph: n={n} nnz={r.size} | dense blocks {tm.nblocks} "
+        f"({tm.blocks.nbytes / 1e9:.2f} GB, "
+        f"{1 - tm.coo_vals.size / r.size:.3f} of nnz, mean fill "
+        f"{(r.size - tm.coo_vals.size) / max(tm.blocks.size, 1):.5f}) | "
+        f"COO {tm.coo_vals.size} entries ({tm.coo_vals.size * 12 / 1e6:.1f}"
+        f" MB) | blocks per block row mean {per_row.mean():.1f} max "
+        f"{per_row.max()} | isolated vertices {isolated} | generate "
+        f"{t1 - t0:.1f} s, pack {t2 - t1:.1f} s")
+    return tm, (r, c, v)
+
+
+def kernel_phase(torch, op, timer):
+    """Each kernel at its main-path shapes against its plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import gram as gram_mod
+    from repro_torch.kernels import spmm_tile, tsgemm as tsgemm_mod
+    dev = op.device
+    n = op.n
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows = []
+    x = randn(n, BLOCK_SIZE)
+    blocks, cols, ptr = op._blocks, op._block_cols, op._row_ptr
+
+    # --- spmm_blocksparse -------------------------------------------------
+    y = ops.spmm_blocks(blocks, cols, ptr, x)
+    y_ref = ops.spmm_blocks(blocks, cols, ptr, x, impl="ref")
+    # Σ|terms| per output; the normalized adjacency has no negative entry,
+    # so the image itself serves and no 13 GB |blocks| copy is made
+    abs_blocks = blocks if float(blocks.min()) >= 0 else blocks.abs()
+    scale = ops.spmm_blocks(abs_blocks, cols, ptr, x.abs(), impl="ref")
+    err = rel_err(y, y_ref, scale)
+    abs_err = float((y - y_ref).abs().max())
+    del y_ref, scale, abs_blocks
+    ms = timer.ms(lambda: ops.spmm_blocks(blocks, cols, ptr, x))
+    plain = timer.ms(lambda: ops.spmm_blocks(blocks, cols, ptr, x,
+                                             impl="ref"), reps=3)
+    nb, bm, bn = blocks.shape
+    nbytes = (blocks.numel() * 4 + cols.numel() * 4 + ptr.numel() * 4
+              + x.numel() * 4 + y.numel() * 4)
+    bms, by = bound_ms(nbytes, 2 * nb * bm * bn * BLOCK_SIZE)
+    lib_ms, lib_note = None, "torch.sparse BSR @ dense"
+    try:
+        with warnings.catch_warnings():   # "BSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            bsr = torch.sparse_bsr_tensor(ptr, cols, blocks, size=(n, n),
+                                          check_invariants=False)
+        lib_ms = timer.ms(lambda: bsr @ x, reps=3)
+    except (RuntimeError, NotImplementedError) as e:  # yardstick only
+        lib_note = f"BSR product unavailable: {str(e).splitlines()[0]}"
+    # the heaviest block row alone: its share of the whole launch
+    per_row = (ptr[1:] - ptr[:-1]).cpu()
+    heavy = int(per_row.argmax())
+    lo, hi = int(ptr[heavy]), int(ptr[heavy + 1])
+    sub_ptr = torch.tensor([0, hi - lo], dtype=torch.int32, device=dev)
+    heavy_ms = timer.ms(lambda: spmm_tile.spmm_blocksparse(
+        blocks[lo:hi], cols[lo:hi], sub_ptr, x))
+    log(f"kernel spmm_blocksparse: blocks {tuple(blocks.shape)} x "
+        f"{tuple(x.shape)} | rel err {err:.3e} (tol {KERNEL_TOL:g} of "
+        f"Σ|terms|), max abs err {abs_err:.3e} | {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, library {lib_ms} ms ({lib_note}), bound "
+        f"{bms:.3f} ms ({by}) | heaviest block row {heavy} "
+        f"({hi - lo} blocks) alone {heavy_ms:.3f} ms = "
+        f"{heavy_ms / ms:.2f} of the launch")
+    if not err <= KERNEL_TOL:
+        fail(f"spmm_blocksparse disagrees with its plain version: {err}")
+    rows.append({"name": "spmm_blocksparse", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/spmm_tile.cu",
+                 "replaces": "src/repro/kernels/spmm_tile.py:50",
+                 "module": spmm_tile, "max_abs_err": abs_err, "ms": ms,
+                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                 "library_ms": lib_ms, "heavy_row_ms": heavy_ms})
+
+    # --- gram ---------------------------------------------------------------
+    a, b = randn(n, BLOCK_SIZE), randn(n, BLOCK_SIZE)
+    g = ops.gram(a, b)
+    if not torch.equal(g, ops.gram(a, b)):
+        fail("gram is not bit-identical from run to run")
+    err = rel_err(g, ops.gram(a, b, impl="ref"), a.abs().T @ b.abs())
+    abs_err = float((g - ops.gram(a, b, impl="ref")).abs().max())
+    ms = timer.ms(lambda: ops.gram(a, b))
+    plain = timer.ms(lambda: ops.gram(a, b, impl="ref"))
+    lib_ms = timer.ms(lambda: torch.matmul(a.T, b))
+    m = BLOCK_SIZE
+    bms, by = bound_ms((2 * n * m + m * m) * 4, 2 * n * m * m)
+    log(f"kernel gram: ({n}, {m})ᵀ({n}, {m}) | rel err {err:.3e} (tol "
+        f"{KERNEL_TOL:g} of Σ|terms|), max abs err {abs_err:.3e} | "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, library torch.matmul(a.T, b) "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    if not err <= KERNEL_TOL:
+        fail(f"gram disagrees with its plain version: {err}")
+    rows.append({"name": "gram", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/gram.cu",
+                 "replaces": "src/repro/kernels/gram.py:34",
+                 "module": gram_mod, "max_abs_err": abs_err, "ms": ms,
+                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                 "library_ms": lib_ms})
+
+    # --- tsgemm: (4, 4) in CGS2 and compress, (4, 8) for the Ritz vectors -
+    for width in (BLOCK_SIZE, NEV):
+        small, c0 = randn(m, width), randn(n, width)
+        c = ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=c0)
+        c_ref = ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=c0,
+                           impl="ref")
+        e = rel_err(c, c_ref, a.abs() @ small.abs() + c0.abs())
+        if not e <= KERNEL_TOL:
+            fail(f"tsgemm ({m}, {width}) disagrees with its plain version:"
+                 f" {e}")
+        if width == BLOCK_SIZE:
+            err, abs_err = e, float((c - c_ref).abs().max())
+    small, c0 = randn(m, m), randn(n, m)
+    ms = timer.ms(lambda: ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=c0))
+    plain = timer.ms(lambda: ops.tsgemm(a, small, alpha=-1.0, beta=1.0,
+                                        c0=c0, impl="ref"))
+    lib_ms = timer.ms(lambda: torch.addmm(c0, a, small, beta=1.0,
+                                          alpha=-1.0))
+    bms, by = bound_ms((n * m + m * m + 2 * n * m) * 4,
+                       2 * n * m * m + 2 * n * m)
+    log(f"kernel tsgemm: ({n}, {m})·({m}, {m}) + C0 | rel err {err:.3e} "
+        f"(tol {KERNEL_TOL:g} of Σ|terms|; also checked at ({m}, {NEV})), "
+        f"max abs err {abs_err:.3e} | {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"library torch.addmm {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    rows.append({"name": "tsgemm", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/tsgemm.cu",
+                 "replaces": "src/repro/kernels/tsgemm.py:28",
+                 "module": tsgemm_mod, "max_abs_err": abs_err, "ms": ms,
+                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                 "library_ms": lib_ms})
+    torch.cuda.synchronize()
+    return rows
+
+
+def solve_main_path(torch, op, modules):
+    """The counted run: launch counters zeroed just before, read after."""
+    from repro_torch.core import TieredStore, solve, true_residuals
+    store = TieredStore(device=op.device)
+    op.store = store
+    for mod in modules:
+        mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(op, NEV, method="krylov_schur", block_size=BLOCK_SIZE,
+                num_blocks=NUM_BLOCKS, tol=TOL, max_iters=MAX_ITERS,
+                store=store)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+                for mod in modules}
+    resid = true_residuals(op, res.eigenvectors, res.eigenvalues)
+    log(f"e2e: solve wall {wall:.3f} s | converged {res.converged} | "
+        f"restarts {res.n_restarts} | SpMM calls {res.n_ops} | "
+        f"kernel launches {launches} | peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"e2e: eigenvalues {np.array2string(res.eigenvalues, precision=7)}")
+    log(f"e2e: cheap residual bounds {np.array2string(res.residuals)}")
+    log(f"e2e: true residuals ‖Ax−θx‖/max(1,|θ|) "
+        f"{np.array2string(resid)} (limit {RESID_TOL:g})")
+    log(f"e2e: IOStats {json.dumps(res.io_stats)}")
+    if not res.converged:
+        fail(f"the solve did not converge in {MAX_ITERS} restarts")
+    vec = res.eigenvectors
+    if tuple(vec.shape) != (op.n, NEV) or not bool(torch.isfinite(vec).all()):
+        fail(f"eigenvectors {tuple(vec.shape)} not finite ({op.n}, {NEV})")
+    if not np.all(resid <= RESID_TOL):
+        fail(f"true residuals above {RESID_TOL}: {resid}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    return launches, wall, res
+
+
+def breakdown(torch, op, restarts: int = 3) -> None:
+    """Device time by kernel and copy, and host spans, over a short solve
+    (the same expansion pattern as the main run, fewer restarts)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import TieredStore, solve
+    from repro_torch.obs import Tracer, tracing
+    store = TieredStore(device=op.device)
+    op.store = store
+    tracer = Tracer()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with tracing(tracer):
+            solve(op, NEV, block_size=BLOCK_SIZE, num_blocks=NUM_BLOCKS,
+                  tol=0.0, max_iters=restarts, store=store)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cats = {"spmm_blocksparse": 0.0, "gram": 0.0, "tsgemm": 0.0,
+            "Memcpy HtoD": 0.0, "Memcpy DtoH": 0.0, "other": 0.0}
+    others = []
+    for evt in prof.key_averages():
+        # device-side records only: an aten op's own entry repeats the
+        # time of the kernels it launched
+        if "CUDA" not in str(getattr(evt, "device_type", "")):
+            continue
+        ms = float(evt.self_device_time_total) / 1e3
+        key = next((k for k in cats if k != "other" and k in evt.key),
+                   "other")
+        cats[key] += ms
+        if key == "other":
+            others.append((ms, evt.count, evt.key[:60]))
+    busy = sum(cats.values())
+    host = {}
+    for rec in tracer.records():
+        if rec["type"] == "span":
+            host[rec["name"]] = host.get(rec["name"], 0.0) + rec["dur"] / 1e3
+    log(f"breakdown ({restarts} restarts, profiled): wall {wall_ms:.1f} ms "
+        f"| device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall_ms:.3f} | device ms by kind "
+        f"{json.dumps({k: round(v, 3) for k, v in cats.items()})}")
+    if cats["Memcpy HtoD"] > 0:
+        log(f"breakdown: host tier → card {store.stats.pass_bytes_read} "
+            f"subspace bytes in {cats['Memcpy HtoD']:.3f} ms of H2D copies "
+            f"= {store.stats.pass_bytes_read / cats['Memcpy HtoD'] / 1e6:.1f}"
+            f" GB/s")
+    log("breakdown: largest other device kernels (ms, count, name): "
+        + "; ".join(f"{ms:.3f}, {cnt}, {name}"
+                    for ms, cnt, name in sorted(others, reverse=True)[:6]))
+    log(f"breakdown host spans ms: "
+        f"{json.dumps({k: round(v, 3) for k, v in sorted(host.items())})}")
+    if busy <= 0:
+        log("breakdown: the profiler reported no device time (not measured)")
+
+
+def small_reference_check(torch, dev) -> None:
+    from repro_torch.core import GraphOperator, TieredStore, solve
+    from repro_torch.graphs import pack_tiles, rmat_spectral, to_dense
+    n = 1200
+    r, c, v = rmat_spectral(n, 10000, seed=5)
+    tm = pack_tiles(n, n, r, c, v, block_shape=BLOCK,
+                    min_block_nnz=MIN_BLOCK_NNZ)
+    store = TieredStore(device=dev)
+    res = solve(GraphOperator(tm, store=store), NEV, block_size=BLOCK_SIZE,
+                tol=1e-6, max_iters=200, store=store)
+    ev = np.linalg.eigvalsh(to_dense(n, r, c, v).astype(np.float64))
+    ev = np.sort(ev[np.argsort(-np.abs(ev))][:NEV])
+    err = float(np.max(np.abs(np.sort(res.eigenvalues) - ev) / np.abs(ev)))
+    log(f"small input: n={n} converged {res.converged} | max rel err vs "
+        f"dense eigvalsh {err:.3e} (tol 1e-5)")
+    if not (res.converged and err <= 1e-5):
+        fail("small-input spectrum disagrees with the dense reference")
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    from repro_torch.core import GraphOperator
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card_line = card(torch)
+    build_s = build()
+    dev = torch.device("cuda", 0)
+
+    tm, _ = make_graph(N_LOG2, NNZ_LOG2)
+    t0 = time.perf_counter()
+    op = GraphOperator(tm, device=dev)
+    torch.cuda.synchronize()
+    log(f"upload: image to the card in {time.perf_counter() - t0:.2f} s")
+
+    timer = Timer(torch, dev)
+    rows = kernel_phase(torch, op, timer)
+    modules = [r.pop("module") for r in rows]
+
+    small_reference_check(torch, dev)   # also warms cuBLAS / cuSOLVER
+    launches, _, _ = solve_main_path(torch, op, modules)
+    for r, mod in zip(rows, modules):
+        r["launches"] = launches[mod.__name__.rsplit(".", 1)[1]]
+    breakdown(torch, op)
+
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    log(f"total: {time.perf_counter() - t_start:.1f} s (build "
+        f"{build_s:.1f} s)")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(card_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,35 @@
+"""Argument checks shared by the kernel wrappers: a wrapper raises on
+anything its kernel does not take, before a pointer reaches CUDA."""
+from __future__ import annotations
+
+import torch
+
+
+def require_cuda_f32(name: str, **tensors: torch.Tensor) -> torch.device:
+    """All tensors float32, contiguous and on one CUDA device; returns it.
+    bf16 matrix images are still to port (ROADMAP, TPU kernels queue)."""
+    dev = None
+    for arg, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, the kernel "
+                             f"runs on CUDA tensors only")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} is {t.dtype}; only float32 is "
+                            f"ported (bf16 is listed in ROADMAP.md)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
+    return dev
+
+
+def require_int32(name: str, device: torch.device,
+                  **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        if t.dtype != torch.int32 or t.device != device:
+            raise TypeError(f"{name}: {arg} must be int32 on {device}, "
+                            f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")

@@ -1,0 +1,101 @@
+"""Public kernel entry points, dispatched by the tensor's device.
+
+Mirrors `repro.kernels.ops`. With `impl="auto"` (the default) a CUDA
+tensor launches the hand-written kernel, and raises if the kernel does
+not build or launch; a CPU tensor takes the plain PyTorch version.
+`impl="ref"` forces the plain version on any device (tests and
+chip_smoke.py compare with it). There is no fallback from a CUDA tensor
+to the plain version.
+"""
+from __future__ import annotations
+
+from typing import Literal
+
+import numpy as np
+import torch
+
+from repro_torch.graphs.tiles import TiledMatrix
+from repro_torch.kernels import gram as _gram_kernel
+from repro_torch.kernels import spmm_tile as _spmm_kernel
+from repro_torch.kernels import tsgemm as _tsgemm_kernel
+from repro_torch.kernels.gram_ref import gram_ref
+from repro_torch.kernels.spmm_ref import coo_spmm_ref, spmm_ref
+from repro_torch.kernels.tsgemm_ref import tsgemm_ref
+
+Impl = Literal["auto", "ref"]
+
+
+def _use_kernel(impl: Impl, t: torch.Tensor) -> bool:
+    if impl == "ref":
+        return False
+    if impl == "auto":
+        return t.device.type == "cuda"
+    raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
+
+
+# ---------------------------------------------------------------------------
+# SpMM
+# ---------------------------------------------------------------------------
+
+def block_rows_from_ptr(row_ptr: np.ndarray) -> np.ndarray:
+    """Flatten the CSR row_ptr into per-block block-row ids."""
+    return np.repeat(np.arange(row_ptr.shape[0] - 1, dtype=np.int32),
+                     np.diff(row_ptr))
+
+
+def empty_row_mask(row_ptr: np.ndarray, bm: int) -> np.ndarray:
+    """Boolean (n_rows,) mask — True where the block row has any blocks."""
+    return np.repeat(np.diff(row_ptr) > 0, bm)
+
+
+def spmm_blocks(blocks: torch.Tensor, block_cols: torch.Tensor,
+                row_ptr: torch.Tensor, x: torch.Tensor, *,
+                impl: Impl = "auto") -> torch.Tensor:
+    """Block-sparse part of SpMM over the CSR `row_ptr`. Rows of empty
+    block rows come out zero on both paths."""
+    if _use_kernel(impl, x):
+        return _spmm_kernel.spmm_blocksparse(blocks, block_cols, row_ptr, x)
+    n_block_rows = row_ptr.shape[0] - 1
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    block_rows = torch.repeat_interleave(
+        torch.arange(n_block_rows, device=row_ptr.device), counts)
+    return spmm_ref(blocks, block_cols, block_rows, n_block_rows, x)
+
+
+def spmm(tm: TiledMatrix, x: torch.Tensor, *,
+         impl: Impl = "auto") -> torch.Tensor:
+    """Full SpMM: block-sparse path + COO side path. Host-side convenience
+    (copies the image to x's device on every call — GraphOperator keeps
+    it resident instead)."""
+    dev = x.device
+    y = spmm_blocks(torch.from_numpy(tm.blocks).to(dev),
+                    torch.from_numpy(tm.block_cols).to(dev),
+                    torch.from_numpy(tm.row_ptr).to(dev), x, impl=impl)
+    if tm.coo_vals.size:
+        y = y + coo_spmm_ref(torch.from_numpy(tm.coo_rows).to(dev),
+                             torch.from_numpy(tm.coo_cols).to(dev),
+                             torch.from_numpy(tm.coo_vals).to(dev),
+                             x, tm.shape[0])
+    return y
+
+
+# ---------------------------------------------------------------------------
+# TAS dense ops
+# ---------------------------------------------------------------------------
+
+def tsgemm(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
+           beta: float = 0.0, c0: torch.Tensor | None = None,
+           impl: Impl = "auto") -> torch.Tensor:
+    """C = alpha*A@B + beta*C0 (MvTimesMatAddMv)."""
+    if not _use_kernel(impl, a):
+        return tsgemm_ref(a, b, alpha=alpha, beta=beta, c0=c0)
+    return _tsgemm_kernel.tsgemm(a, b, c0 if beta != 0.0 else None,
+                                 alpha=alpha, beta=beta)
+
+
+def gram(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
+         impl: Impl = "auto") -> torch.Tensor:
+    """G = alpha*AᵀB (MvTransMv)."""
+    if not _use_kernel(impl, a):
+        return gram_ref(a, b, alpha=alpha)
+    return _gram_kernel.gram(a, b, alpha=alpha)

@@ -49,6 +49,10 @@ def pytest_configure(config):
         "markers",
         "disk: filesystem-touching test (SAFS page files); run in a bounded "
         "TMPDIR via scripts/run_tier1.sh and size-guarded by disk_tmp")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's hand-written kernels); skips "
+        "inside the test when torch.cuda.is_available() is false")
 
 
 # Per-test byte budget for SAFS page files — a runaway page store should

@@ -1,0 +1,90 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor any
+module of the JAX package, and its entry points never carry on on the CPU
+when no device was asked for and there is no card."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+PORT = os.path.join(SRC, "repro_torch")
+
+
+def _port_modules():
+    import repro_torch
+    return ["repro_torch"] + [
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+
+
+def test_import_loads_no_jax_and_no_reference_module():
+    mods = _port_modules()
+    assert "repro_torch.kernels.ops" in mods and "repro_torch.convert" in mods
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for m in {mods!r}:
+            importlib.import_module(m)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "repro" or m.startswith("repro."))
+        print("BAD", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+_FORBIDDEN = [re.compile(p) for p in (
+    r"^\s*import\s+jax\b", r"^\s*from\s+jax\b",
+    r"^\s*import\s+repro(\.|\s|$|,)", r"^\s*from\s+repro(\.|\s)")]
+
+
+def test_sources_import_no_jax_and_no_reference_module():
+    offenders = []
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                for ln, line in enumerate(fh, 1):
+                    if any(p.search(line) for p in _FORBIDDEN):
+                        offenders.append(f"{path}:{ln}: {line.strip()}")
+    assert not offenders, offenders
+
+
+def test_entry_points_without_device_raise_without_cuda(monkeypatch):
+    from repro_torch.core import DenseOperator, GraphOperator, TieredStore
+    from repro_torch.core import solve
+    from repro_torch.graphs import pack_tiles
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TieredStore()
+    r = np.array([0, 1], np.int32)
+    c = np.array([1, 0], np.int32)
+    v = np.ones(2, np.float32)
+    tm = pack_tiles(8, 8, r, c, v, block_shape=(8, 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraphOperator(tm)
+    # an operator built for the CPU is the caller asking for the CPU; an
+    # operator with no device of its own gets a store that raises
+    op = DenseOperator(np.eye(8, dtype=np.float32), device="cpu")
+
+    class NoDevice:
+        n = 8
+
+        def matmat(self, x):
+            return op.matmat(x)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve(NoDevice(), 2, block_size=2)
+    assert TieredStore(device="cpu").device.type == "cpu"

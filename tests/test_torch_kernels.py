@@ -1,0 +1,207 @@
+"""The port's kernel layer against the JAX package's oracles.
+
+On the CPU the port's `ops` take the plain PyTorch versions; they are
+held against `repro.kernels.*_ref` (the Pallas kernels themselves do not
+trace on this jax) on the shapes of tests/test_kernels.py plus ragged n,
+empty block rows and the COO side path. Tolerance: rtol 1e-6, with an
+absolute floor of 1e-6 times the output's largest magnitude, because the
+two libraries sum the same f32 products in different orders (an element
+that nearly cancels has no relative accuracy to compare).
+
+The CUDA kernels themselves are held to their plain versions on the card
+by tests/test_torch_gpu.py.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.graphs import pack_tiles as ref_pack_tiles
+from repro.graphs import rmat_graph as ref_rmat_graph
+from repro.kernels import ops as ref_ops
+from repro.kernels.gram_ref import gram_ref as ref_gram
+from repro.kernels.spmm_ref import coo_spmm_ref as ref_coo
+from repro.kernels.spmm_ref import spmm_ref as ref_spmm
+from repro.kernels.tsgemm_ref import tsgemm_ref as ref_tsgemm
+from repro_torch.convert import tiled_from_arrays
+from repro_torch.graphs import pack_tiles, rmat_graph, to_dense
+from repro_torch.graphs import rmat_spectral
+from repro_torch.kernels import gram as gram_kernel
+from repro_torch.kernels import ops
+from repro_torch.kernels import spmm_tile, tsgemm as tsgemm_kernel
+
+RTOL = 1e-6
+
+
+def _close(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    atol = RTOL * max(float(np.max(np.abs(want), initial=0.0)), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# --------------------------------------------------------------- graphs
+
+@pytest.mark.parametrize("n,nnz,bm,min_nnz", [
+    (256, 2000, 16, 1), (600, 5000, 16, 2), (1200, 10000, 64, 4)])
+def test_pack_tiles_byte_identical_to_reference(n, nnz, bm, min_nnz):
+    r, c, v = rmat_graph(n, nnz, seed=n, symmetric=True)
+    rr, rc, rv = ref_rmat_graph(n, nnz, seed=n, symmetric=True)
+    for a, b in ((r, rr), (c, rc), (v, rv)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    tm = pack_tiles(n, n, r, c, v, block_shape=(bm, bm),
+                    min_block_nnz=min_nnz)
+    ref = ref_pack_tiles(n, n, rr, rc, rv, block_shape=(bm, bm),
+                         min_block_nnz=min_nnz)
+    conv = tiled_from_arrays(dataclasses.asdict(ref))
+    for got in (tm, conv):
+        for f in dataclasses.fields(ref):
+            a, b = getattr(got, f.name), getattr(ref, f.name)
+            if isinstance(b, np.ndarray):
+                assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+            else:
+                assert tuple(a) == tuple(b), f
+    assert tm.nbytes_image() == ref.nbytes_image()
+
+
+def test_rmat_spectral_matches_reference():
+    from repro.graphs.synth import rmat_spectral as ref_rmat_spectral
+    for a, b in zip(rmat_spectral(500, 3000, seed=3),
+                    ref_rmat_spectral(500, 3000, seed=3)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+# ----------------------------------------------------------------- spmm
+
+@pytest.mark.parametrize("n,nnz,bm,k", [
+    (256, 2000, 16, 4), (512, 4000, 32, 8), (300, 1500, 16, 2),
+    (1024, 8000, 64, 1),
+])
+def test_spmm_plain_vs_reference(n, nnz, bm, k, rng):
+    r, c, v = rmat_graph(n, nnz, seed=n, symmetric=True)
+    tm = pack_tiles(n, n, r, c, v, block_shape=(bm, bm), min_block_nnz=1)
+    x = rng.standard_normal((tm.shape[1], k)).astype(np.float32)
+    brs = ref_ops.block_rows_from_ptr(tm.row_ptr)
+    want = ref_spmm(jnp.asarray(tm.blocks), jnp.asarray(tm.block_cols),
+                    jnp.asarray(brs), tm.n_block_rows, jnp.asarray(x))
+    got = ops.spmm_blocks(_t(tm.blocks), _t(tm.block_cols), _t(tm.row_ptr),
+                          _t(x))
+    _close(got, want)
+    assert np.array_equal(ops.block_rows_from_ptr(tm.row_ptr), brs)
+
+
+def test_spmm_empty_block_rows_are_zero(rng):
+    # vertices 64..191 have no edges: two whole empty block rows
+    n, bm = 256, 64
+    r = np.array([0, 5, 200, 250, 7, 3], np.int32)
+    c = np.array([5, 0, 250, 200, 3, 7], np.int32)
+    v = np.ones(r.size, np.float32)
+    tm = pack_tiles(n, n, r, c, v, block_shape=(bm, bm))
+    mask = ops.empty_row_mask(tm.row_ptr, bm)
+    assert np.array_equal(mask, ref_ops.empty_row_mask(tm.row_ptr, bm))
+    assert not mask[64:192].any() and mask[:64].all()
+    x = rng.standard_normal((n, 4)).astype(np.float32)
+    got = ops.spmm_blocks(_t(tm.blocks), _t(tm.block_cols), _t(tm.row_ptr),
+                          _t(x)).numpy()
+    assert np.all(got[~mask] == 0.0)
+    _close(got, to_dense(n, r, c, v) @ x)
+
+
+def test_spmm_full_hybrid_vs_reference_and_dense(rng):
+    n = 600
+    r, c, v = rmat_graph(n, 5000, seed=7, symmetric=True)
+    tm = pack_tiles(n, n, r, c, v, block_shape=(16, 16), min_block_nnz=2)
+    assert tm.coo_vals.size and tm.nblocks
+    x = rng.standard_normal((tm.shape[1], 4)).astype(np.float32)
+    x[n:] = 0
+    got = ops.spmm(tm, _t(x)).numpy()
+    want = np.asarray(ref_ops.spmm(tm, jnp.asarray(x), impl="ref"))
+    _close(got, want)
+    np.testing.assert_allclose(got[:n], to_dense(n, r, c, v) @ x[:n],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_coo_path_vs_reference(rng):
+    n, nnz = 500, 3000
+    rows = rng.integers(0, n, nnz).astype(np.int32)
+    cols = rng.integers(0, n, nnz).astype(np.int32)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    x = rng.standard_normal((n, 3)).astype(np.float32)
+    from repro_torch.kernels.spmm_ref import coo_spmm_ref
+    got = coo_spmm_ref(_t(rows), _t(cols), _t(vals), _t(x), n)
+    want = ref_coo(jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(vals),
+                   jnp.asarray(x), n)
+    _close(got, want)
+
+
+# ------------------------------------------------------- tsgemm / gram
+
+@pytest.mark.parametrize("n,m,b", [
+    (1024, 24, 4), (512, 8, 8), (768, 64, 2), (256, 4, 1),
+    (1000, 4, 4), (333, 5, 3),            # ragged n
+])
+def test_tsgemm_plain_vs_reference(n, m, b, rng):
+    a = rng.standard_normal((n, m)).astype(np.float32)
+    small = rng.standard_normal((m, b)).astype(np.float32)
+    c0 = rng.standard_normal((n, b)).astype(np.float32)
+    got = ops.tsgemm(_t(a), _t(small), alpha=1.5, beta=0.5, c0=_t(c0))
+    want = ref_tsgemm(jnp.asarray(a), jnp.asarray(small), alpha=1.5,
+                      beta=0.5, c0=jnp.asarray(c0))
+    _close(got, want)
+    got0 = ops.tsgemm(_t(a), _t(small), alpha=-1.0)
+    _close(got0, ref_tsgemm(jnp.asarray(a), jnp.asarray(small), alpha=-1.0))
+
+
+@pytest.mark.parametrize("n,m,b", [
+    (1024, 24, 4), (512, 16, 16), (640, 8, 2),
+    (1000, 4, 4), (4097, 3, 5),           # ragged n
+])
+def test_gram_plain_vs_reference(n, m, b, rng):
+    a = rng.standard_normal((n, m)).astype(np.float32)
+    bb = rng.standard_normal((n, b)).astype(np.float32)
+    got = ops.gram(_t(a), _t(bb), alpha=2.0)
+    want = ref_gram(jnp.asarray(a), jnp.asarray(bb), alpha=2.0)
+    # a Gram entry sums n products, which one library adds in sequence
+    # and the other in blocks: hold the difference to 1e-6 of the sum of
+    # the products' magnitudes, the scale of f32 summation error
+    absdot = 2.0 * np.abs(a).T.astype(np.float64) @ np.abs(bb)
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert np.all(diff <= RTOL * absdot), float(np.max(diff / absdot))
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 2 ** 20, 3 * 2 ** 21 + 7])
+def test_gram_row_partition_covers_n(n):
+    parts, rows = gram_kernel.row_partition(n)
+    assert 1 <= parts <= gram_kernel.MAX_PARTS
+    assert (parts - 1) * rows < n <= parts * rows
+    assert gram_kernel.row_partition(n) == (parts, rows)
+
+
+def test_cpu_tensors_take_plain_version_and_never_launch(rng):
+    before = (spmm_tile.LAUNCHES, gram_kernel.LAUNCHES,
+              tsgemm_kernel.LAUNCHES)
+    a = _t(rng.standard_normal((64, 4)).astype(np.float32))
+    for impl in ("auto", "ref"):
+        ops.gram(a, a, impl=impl)
+        ops.tsgemm(a, a[:4], impl=impl)
+    tm = pack_tiles(64, 64, np.array([0], np.int32), np.array([1], np.int32),
+                    np.ones(1, np.float32), block_shape=(16, 16))
+    ops.spmm(tm, a)
+    assert (spmm_tile.LAUNCHES, gram_kernel.LAUNCHES,
+            tsgemm_kernel.LAUNCHES) == before
+    # a kernel wrapper given CPU tensors raises instead of computing
+    with pytest.raises(ValueError, match="CUDA"):
+        gram_kernel.gram(a, a)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsgemm_kernel.tsgemm(a, a[:4])
+    with pytest.raises(ValueError, match="CUDA"):
+        spmm_tile.spmm_blocksparse(_t(tm.blocks), _t(tm.block_cols),
+                                   _t(tm.row_ptr), a)
+    with pytest.raises(ValueError, match="impl"):
+        ops.gram(a, a, impl="emulate")
