@@ -8,7 +8,7 @@ Needs one CUDA card of capability (9, 0), `nvcc` and the repository's
 otherwise. Phases, each of which fails the run:
 
   1. card: name and power limit (nvidia-smi), capability (9, 0);
-  2. build: the three CUDA kernels from src/repro_torch/kernels/csrc,
+  2. build: the four CUDA kernels from src/repro_torch/kernels/csrc,
      compiled in parallel into src/repro_torch/kernels/build/;
   3. graph: the n = 2^20 R-MAT image, `rmat_graph(2**20, 2**23, seed=1,
      symmetric=True)` → normalized adjacency → 64×64 blocks with at least
@@ -24,12 +24,28 @@ otherwise. Phases, each of which fails the run:
   6. small input, before 5: the same solver on a 1,200-vertex graph
      against numpy's dense eigvalsh, rtol 1e-5;
   7. breakdown: a short profiled solve (device time by kernel and copy,
-     host spans for store.get / store.demote / operator.matmat).
+     host spans for store.get / store.demote / operator.matmat);
+  8. flash attention, after the graph image is freed: the kernel against
+     its plain version (float32 arithmetic on the same bf16 inputs) at the
+     yi-9b prefill shapes (B 4, S 2048, H 32, Hkv 4, d 128, causal) and at
+     a ragged non-causal shape (Sq 96, Sk 160, d 64), run-to-run bit
+     identity, timed beside the plain version, PyTorch's
+     scaled_dot_product_attention and the card's bound;
+  9. yi-9b serving at full width and all 48 layers in bf16, weights drawn
+     on the card by `init_model` from a seed: 4 requests of 2,048 prompt
+     tokens through `prefill_with_cache(..., cache_len=2080)`, then 32
+     greedy `decode_step`s, with the launch counters zeroed just before
+     and read just after (48 flash launches per prefill); then one
+     `logits_fn` over prompt plus generated tokens, whose logits at the
+     generated positions must agree with the decode logits;
+ 10. serve breakdown: one profiled prefill and 4 profiled decode steps
+     (device time by kind, idle share, the largest host ops).
 
 Then one JSON line of kernels, the card line, and the final result line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -44,6 +60,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 
 N_LOG2, NNZ_LOG2, GRAPH_SEED = 20, 23, 1
 BLOCK, MIN_BLOCK_NNZ = (64, 64), 4
@@ -51,6 +68,21 @@ NEV, BLOCK_SIZE, NUM_BLOCKS, TOL, MAX_ITERS = 8, 4, 8, 1e-5, 100
 RESID_TOL = 1e-4
 KERNEL_TOL = 1e-5   # |kernel − plain| ≤ KERNEL_TOL · Σ|terms|, per element
 REPS = 10
+
+# flash attention at yi-9b's prefill shapes (B, H, Hkv, S, d), bf16
+FLASH_SERVE = (4, 32, 4, 2048, 128)
+# one bf16 rounding of the output is at most 2^-9 of the value; the f32
+# arithmetic of kernel and plain version differ by ~1e-6: twice the first
+FLASH_TOL = 2.0 ** -8          # of the output's largest magnitude
+
+# yi-9b serving: prompt tokens per request, requests, decode steps, seed
+SERVE_PROMPT, SERVE_BATCH, SERVE_DECODE, SERVE_SEED = 2048, 4, 32, 0
+# decode (one query against the cache, weights rounded to bf16, GEMMs of
+# 4 rows) and the full forward (flash, weights kept f32, GEMMs of 8,320
+# rows) round differently at ~10 places in each of 48 layers; as a random
+# walk of bf16 roundings that is about sqrt(480) * 2^-9 = 0.043 of the
+# logits' norm, and twice that is the limit
+SERVE_TOL = 0.1                # max over positions of ‖Δ‖₂ / ‖logits‖₂
 
 
 def fail(msg: str) -> None:
@@ -90,9 +122,10 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, flops: int, flops_per_s: float = F32_FLOPS_PER_S
+             ) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -376,6 +409,241 @@ def breakdown(torch, op, restarts: int = 3) -> None:
         log("breakdown: the profiler reported no device time (not measured)")
 
 
+def flash_phase(torch, timer, dev):
+    """The flash kernel at yi-9b's prefill shapes and one ragged,
+    non-causal shape, against its plain version in float32."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flashattn, ops
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def qkv(b, h, hkv, sq, sk, d):
+        return [torch.randn(shape, generator=gen, device=dev).bfloat16()
+                for shape in ((b, h, sq, d), (b, hkv, sk, d),
+                              (b, hkv, sk, d))]
+
+    def err(got, q, k, v, causal):
+        want = ops.flash_attention(q.float(), k.float(), v.float(),
+                                   causal=causal, impl="ref")
+        abs_err = float((got.float() - want).abs().max())
+        return abs_err, abs_err / float(want.abs().max())
+
+    q, k, v = qkv(1, 2, 2, 96, 160, 64)
+    _, rel = err(ops.flash_attention(q, k, v, causal=False), q, k, v, False)
+    log(f"kernel flash_attention: ragged (1, 2, 96, 64) x (1, 2, 160, 64) "
+        f"bf16, not causal | rel err {rel:.3e} (tol {FLASH_TOL:g} of the "
+        f"output's largest magnitude)")
+    if not rel <= FLASH_TOL:
+        fail(f"flash_attention (ragged) disagrees with its plain version: "
+             f"{rel}")
+
+    b, h, hkv, s, d = FLASH_SERVE
+    q, k, v = qkv(b, h, hkv, s, s, d)
+    out = ops.flash_attention(q, k, v, causal=True)
+    if not torch.equal(out, ops.flash_attention(q, k, v, causal=True)):
+        fail("flash_attention is not bit-identical from run to run")
+    abs_err, rel = err(out, q, k, v, True)
+    del out
+    ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    plain = timer.ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                 impl="ref"), reps=3)
+    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    pairs = b * h * s * (s + 1) // 2            # (query, key) pairs kept
+    nbytes = (2 * b * h * s * d + 2 * b * hkv * s * d) * 2
+    bms, by = bound_ms(nbytes, 4 * d * pairs, BF16_FLOPS_PER_S)
+    log(f"kernel flash_attention: q {(b, h, s, d)} k/v {(b, hkv, s, d)} "
+        f"bf16 causal | rel err {rel:.3e} (tol {FLASH_TOL:g} of the "
+        f"output's largest magnitude), max abs err {abs_err:.3e}, "
+        f"bit-identical run to run | {ms:.3f} ms = "
+        f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s, plain {plain:.3f} ms, "
+        f"library scaled_dot_product_attention {lib_ms:.3f} ms, bound "
+        f"{bms:.4f} ms ({by}, bf16 tensor-core peak)")
+    if not rel <= FLASH_TOL:
+        fail(f"flash_attention disagrees with its plain version: {rel}")
+    torch.cuda.synchronize()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flashattn.cu",
+            "replaces": "src/repro/kernels/flashattn.py:28",
+            "module": flashattn, "max_abs_err": abs_err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def serve(torch, dev, modules, card_line: str):
+    """yi-9b at full width and depth: prefill, greedy decode, and the
+    full forward over the same tokens as the check. Returns the launch
+    counts of the serving run (prefill and decode)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flashattn
+    from repro_torch.models import transformer as tf
+    cfg = configs.get("yi-9b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_model(SERVE_SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    # param_count leaves out the norm scales: two per layer and the last
+    want = cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model
+    log(f"serve: yi-9b {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}, {n_params} parameters "
+        f"(param_count {cfg.param_count()} + norm scales), "
+        f"{cfg.param_dtype}, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if n_params != want:
+        fail(f"yi-9b has {n_params} parameters, not {want}")
+    prompt = np.random.default_rng(SERVE_SEED).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    prompt = torch.from_numpy(prompt).to(dev)
+    cache_len = SERVE_PROMPT + SERVE_DECODE
+
+    # warm-up at a short prompt: cuBLAS picks its kernels outside the
+    # timed, counted run
+    _, wc = tf.prefill_with_cache(params, cfg, prompt[:, :128],
+                                  cache_len=130)
+    tf.decode_step(params, cfg, wc, prompt[:, :1], 128)
+    del wc
+    torch.cuda.synchronize()
+
+    for mod in modules:
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill_with_cache(params, cfg, prompt,
+                                          cache_len=cache_len)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = flashattn.LAUNCHES
+    tok = logits[:, -1:].argmax(-1).int()
+    del logits
+    generated, dec_logits = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SERVE_PROMPT, cache_len):
+        generated.append(tok)
+        out, cache = tf.decode_step(params, cfg, cache, tok, t)
+        dec_logits.append(out[:, 0])
+        tok = out.argmax(-1).int()
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+                for mod in modules}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"serve: prefill {SERVE_BATCH} x {SERVE_PROMPT} tokens in "
+        f"{t_prefill:.3f} s = {SERVE_BATCH * SERVE_PROMPT / t_prefill:.0f} "
+        f"tokens/s | decode {SERVE_DECODE} steps of {SERVE_BATCH} tokens: "
+        f"{t_decode / SERVE_DECODE * 1e3:.2f} ms/step = "
+        f"{SERVE_BATCH * SERVE_DECODE / t_decode:.1f} tokens/s | peak "
+        f"device memory {peak / 1e9:.2f} GB | kernel launches {launches} | "
+        f"{card_line}")
+    if after_prefill != cfg.n_layers or launches["flashattn"] != \
+            cfg.n_layers:
+        fail(f"flash_attention launched {after_prefill} times in the "
+             f"prefill and {launches['flashattn']} in prefill and decode, "
+             f"not {cfg.n_layers}")
+
+    seq = torch.cat([prompt] + generated, dim=1)
+    before = flashattn.LAUNCHES
+    full = tf.logits_fn(params, cfg, seq)[:, SERVE_PROMPT:]
+    torch.cuda.synchronize()
+    if flashattn.LAUNCHES - before != cfg.n_layers:
+        fail(f"the full forward launched flash_attention "
+             f"{flashattn.LAUNCHES - before} times, not {cfg.n_layers}")
+    dec = torch.stack(dec_logits, dim=1)
+    if tuple(dec.shape) != (SERVE_BATCH, SERVE_DECODE, cfg.vocab_size) or \
+            not bool(torch.isfinite(dec).all()) or \
+            not bool(torch.isfinite(full).all()):
+        fail(f"decode logits {tuple(dec.shape)} not finite "
+             f"({SERVE_BATCH}, {SERVE_DECODE}, {cfg.vocab_size})")
+    diff = dec - full
+    rel = float((diff.norm(dim=-1) / full.norm(dim=-1)).max())
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    log(f"serve: decode vs full forward over {seq.shape[1]} tokens at the "
+        f"{SERVE_DECODE} generated positions: max ‖Δ‖/‖logits‖ {rel:.4f} "
+        f"(limit {SERVE_TOL:g}), max |Δ| {float(diff.abs().max()):.4f} of "
+        f"max |logits| {float(full.abs().max()):.3f}, greedy tokens agree "
+        f"at {agree:.3f} of positions")
+    if not rel <= SERVE_TOL:
+        fail(f"decode logits disagree with the full forward: {rel}")
+    del full, diff, dec, cache
+    serve_breakdown(torch, tf, params, cfg, prompt)
+    return launches
+
+
+def _device_ms_by_kind(prof, kinds):
+    """Device ms per kind (first kind whose name pattern matches a kernel
+    name, else "other") and the largest "other" kernels."""
+    cats = {k: 0.0 for k in kinds}
+    cats["other"] = 0.0
+    others = []
+    for evt in prof.key_averages():
+        if "CUDA" not in str(getattr(evt, "device_type", "")):
+            continue
+        ms = float(evt.self_device_time_total) / 1e3
+        key = next((k for k, pats in kinds.items()
+                    if any(p in evt.key for p in pats)), "other")
+        cats[key] += ms
+        if key == "other":
+            others.append((ms, evt.count, evt.key[:60]))
+    return cats, sorted(others, reverse=True)[:5]
+
+
+def serve_breakdown(torch, tf, params, cfg, prompt, steps: int = 4) -> None:
+    """Device time by kind over one profiled prefill and a few decode
+    steps, beside their wall time (the idle share says how far the host
+    holds the card back)."""
+    from torch.profiler import ProfilerActivity, profile
+    kinds = {"flash_attention": ("flash_attention_kernel",),
+             "gemm": ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass"),
+             "memcpy": ("Memcpy", "Memset")}
+    cache_len = prompt.shape[1] + steps
+    for phase in ("prefill", "decode"):
+        if phase == "decode":
+            _, cache = tf.prefill_with_cache(params, cfg, prompt,
+                                             cache_len=cache_len)
+            tok = prompt[:, -1:]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if phase == "prefill":
+                tf.prefill_with_cache(params, cfg, prompt,
+                                      cache_len=cache_len)
+            else:
+                for t in range(prompt.shape[1], cache_len):
+                    tf.decode_step(params, cfg, cache, tok, t)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        cats, others = _device_ms_by_kind(prof, kinds)
+        busy = sum(cats.values())
+        n = 1 if phase == "prefill" else steps
+        log(f"serve breakdown ({phase}, profiled, {n} call(s)): wall "
+            f"{wall / n:.2f} ms per call | device busy {busy / n:.2f} ms, "
+            f"idle share {1 - busy / wall:.3f} | device ms per call by "
+            f"kind {json.dumps({k: round(v / n, 3) for k, v in cats.items()})}"
+            f" | largest other kernels (ms, count, name): "
+            + "; ".join(f"{ms:.3f}, {cnt}, {name}"
+                        for ms, cnt, name in others))
+        host = sorted(((float(e.self_cpu_time_total) / 1e3, e.count,
+                        e.key[:40]) for e in prof.key_averages()
+                       if "CUDA" not in str(getattr(e, "device_type", ""))),
+                      reverse=True)[:6]
+        log(f"serve breakdown ({phase}): largest host ops (self ms, count, "
+            f"name): " + "; ".join(f"{ms:.2f}, {cnt}, {name}"
+                                   for ms, cnt, name in host))
+        if phase == "decode":
+            del cache
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def small_reference_check(torch, dev) -> None:
     from repro_torch.core import GraphOperator, TieredStore, solve
     from repro_torch.graphs import pack_tiles, rmat_spectral, to_dense
@@ -425,6 +693,14 @@ def main() -> None:
     for r, mod in zip(rows, modules):
         r["launches"] = launches[mod.__name__.rsplit(".", 1)[1]]
     breakdown(torch, op)
+    del op, tm                           # free the 12.86 GB image
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows.append(flash_phase(torch, timer, dev))
+    modules.append(rows[-1].pop("module"))
+    launches = serve(torch, dev, modules, card_line)
+    rows[-1]["launches"] = launches["flashattn"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,18 +1,22 @@
 """Carry state across from the JAX package as plain numpy arrays.
 
 `tiled_from_arrays` builds the port's `TiledMatrix` from the fields of a
-reference `TiledMatrix` (e.g. `dataclasses.asdict(tm)`), and
-`store_from_arrays` loads named numpy blocks into a port `TieredStore`.
-With them a test hands both packages the same matrix image and the same
-subspace blocks without this package importing the reference.
+reference `TiledMatrix` (e.g. `dataclasses.asdict(tm)`),
+`store_from_arrays` loads named numpy blocks into a port `TieredStore`,
+and `params_from_arrays` turns a reference model's parameters into the
+port's tensors. With them a test hands both packages the same matrix
+image, subspace blocks and weights without this package importing the
+reference.
 """
 from __future__ import annotations
 
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.tiered import DEVICE, TieredStore
+from repro_torch.device import resolve_device
 from repro_torch.graphs.tiles import TiledMatrix
 
 _ARRAY_FIELDS = {"blocks": np.float32, "block_cols": np.int32,
@@ -45,3 +49,35 @@ def store_from_arrays(arrays: Mapping[str, np.ndarray], *,
     for name, a in arrays.items():
         store.put(name, np.ascontiguousarray(a), tier=tier)
     return store
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """One leaf, keeping its dtype and bytes. numpy has no bf16: a JAX bf16
+    array comes out of `np.asarray` as `ml_dtypes.bfloat16`, which
+    `torch.from_numpy` refuses, so its bits go through int16."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:      # JAX hands out read-only views
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).view(np.int16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def params_from_arrays(tree, *, device=None):
+    """The port's parameter tree from a reference parameter tree whose
+    leaves are arrays (numpy, or anything `np.asarray` takes): the same
+    nesting of dicts and lists, each leaf a tensor on `device` (the card
+    when None) of the leaf's dtype, bit for bit."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _tensor(node, dev)
+
+    return walk(tree)

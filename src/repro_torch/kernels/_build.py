@@ -35,6 +35,10 @@ SIGNATURES = {
                                    _P],
     "repro_gram_f32": [_P, _P, _P, _P, _LL, _I, _I, _I, _LL, _F, _I, _P],
     "repro_tsgemm_f32": [_P, _P, _P, _P, _LL, _I, _I, _F, _F, _I, _P],
+    "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _I, _P],
+    "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

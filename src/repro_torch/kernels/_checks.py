@@ -33,3 +33,25 @@ def require_int32(name: str, device: torch.device,
                             f"got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def require_cuda_float(name: str, **tensors: torch.Tensor) -> torch.device:
+    """All tensors of one type, float32 or bf16, on one CUDA device, with a
+    contiguous last dim (other strides are free); returns the device."""
+    dev = dtype = None
+    for arg, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, the kernel "
+                             f"runs on CUDA tensors only")
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
+                            f"float32 or bfloat16")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {arg} needs a contiguous last dim, "
+                             f"got strides {t.stride()}")
+        if dev is None:
+            dev, dtype = t.device, t.dtype
+        elif t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype} on {t.device}, "
+                             f"not {dtype} on {dev}")
+    return dev

@@ -15,9 +15,11 @@ import numpy as np
 import torch
 
 from repro_torch.graphs.tiles import TiledMatrix
+from repro_torch.kernels import flashattn as _flash_kernel
 from repro_torch.kernels import gram as _gram_kernel
 from repro_torch.kernels import spmm_tile as _spmm_kernel
 from repro_torch.kernels import tsgemm as _tsgemm_kernel
+from repro_torch.kernels.flashattn_ref import attention_ref
 from repro_torch.kernels.gram_ref import gram_ref
 from repro_torch.kernels.spmm_ref import coo_spmm_ref, spmm_ref
 from repro_torch.kernels.tsgemm_ref import tsgemm_ref
@@ -99,3 +101,17 @@ def gram(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
     if not _use_kernel(impl, a):
         return gram_ref(a, b, alpha=alpha)
     return _gram_kernel.gram(a, b, alpha=alpha)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, impl: Impl = "auto") -> torch.Tensor:
+    """Softmax attention, scale 1/√d: q (B, H, Sq, d), k/v (B, Hkv, Sk, d)
+    with H % Hkv == 0 → (B, H, Sq, d) in q's dtype. Weights and sums stay
+    float32 on both paths."""
+    if _use_kernel(impl, q):
+        return _flash_kernel.flash_attention(q, k, v, causal=causal)
+    return attention_ref(q, k, v, causal=causal)

@@ -6,14 +6,18 @@ a machine with one (no JAX needed) run
 
 Tolerance: rtol 1e-6 of the output's largest magnitude for SpMM and
 TSGEMM; a Gram entry sums n products, so its difference is held to 1e-6
-of the sum of the products' magnitudes.
+of the sum of the products' magnitudes. Flash attention is held to its
+plain version run in float32 on the same inputs: 2e-5 of the output's
+largest magnitude for float32 (sums in another order and another exp),
+2^-8 of it for bf16, whose output is rounded once to bf16 (at most half
+an ulp, 2^-9 of the value).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.graphs import pack_tiles, rmat_graph
-from repro_torch.kernels import ops, spmm_tile
+from repro_torch.kernels import flashattn, ops, spmm_tile
 
 RTOL = 1e-6
 
@@ -101,3 +105,118 @@ def test_small_solve_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(got, want, rtol=1e-5)
     assert gpu.io_stats == cpu.io_stats
     assert gpu.eigenvectors.is_cuda
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -8}
+
+
+def _flash_inputs(cuda, dtype, b, h, hkv, sq, sk, d, seed):
+    g = np.random.default_rng(seed)
+    q, k, v = (_t(g.standard_normal(shape).astype(np.float32)).to(cuda)
+               .to(dtype) for shape in ((b, h, sq, d), (b, hkv, sk, d),
+                                        (b, hkv, sk, d)))
+    return q, k, v
+
+
+def _flash_err(got, q, k, v, causal):
+    want = ops.flash_attention(q.float(), k.float(), v.float(),
+                               causal=causal, impl="ref")
+    scale = float(want.abs().max())
+    return float((got.float() - want).abs().max()) / scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_kernel_vs_plain_on_card(cuda, d, causal, dtype):
+    """GQA (4 query heads on 2 KV heads), a ragged length (200 is not a
+    multiple of the 64-row tiles) and Sq < Sk."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for sq, sk in ((200, 200), (70, 130)):
+        q, k, v = _flash_inputs(cuda, dtype, 2, 4, 2, sq, sk, d, seed=d)
+        before = flashattn.LAUNCHES
+        got = ops.flash_attention(q, k, v, causal=causal)
+        assert flashattn.LAUNCHES == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        assert _flash_err(got, q, k, v, causal) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (1, 8, 1, 1024, 1024, 128, True),     # yi-9b's head dim and grouping
+    (1, 2, 2, 96, 160, 64, False)])       # ragged, not causal
+def test_flash_kernel_serve_shapes_bit_identical(cuda, b, h, hkv, sq, sk, d,
+                                                 causal):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_inputs(cuda, torch.bfloat16, b, h, hkv, sq, sk, d,
+                            seed=sq)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+    assert _flash_err(got, q, k, v, causal) <= FLASH_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_flash_kernel_reads_strided_views(cuda):
+    """The model passes (B, S, H, d) projections as (B, H, S, d) views."""
+    g = np.random.default_rng(3)
+    q = _t(g.standard_normal((2, 150, 8, 32)).astype(np.float32)).to(cuda)
+    kv = _t(g.standard_normal((2, 150, 2, 2, 32)).astype(np.float32)).to(cuda)
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    got = ops.flash_attention(q.transpose(1, 2), k, v)
+    assert got.transpose(1, 2).is_contiguous()
+    want = ops.flash_attention(q.transpose(1, 2).contiguous(), k.contiguous(),
+                               v.contiguous())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _flash_inputs(cuda, torch.float32, 1, 2, 2, 64, 64, 80, seed=0)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _flash_inputs(cuda, torch.float32, 1, 2, 2, 64, 64, 64, seed=0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="H % Hkv"):
+        ops.flash_attention(q[:, :, :, :], k.repeat(1, 3, 1, 1),
+                            v.repeat(1, 3, 1, 1))
+
+
+@pytest.mark.gpu
+def test_reduced_model_on_card_matches_cpu(cuda):
+    """The serving path at reduced("yi-9b") in float32: prefill through
+    the flash kernel (one launch per layer) and decode on the card against
+    the same weights on the CPU's plain versions."""
+    from repro_torch import configs
+    from repro_torch.convert import params_from_arrays
+    from repro_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.reduced("yi-9b")
+    cpu_params = tf.init_model(0, cfg, device="cpu")
+    gpu_params = params_from_arrays(_numpy_tree(cpu_params), device=cuda)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 70))
+    out = {}
+    for dev, params in (("cpu", cpu_params), (cuda, gpu_params)):
+        before = flashattn.LAUNCHES
+        logits, cache = tf.prefill_with_cache(params, cfg, toks[:, :66],
+                                              cache_len=70, device=dev)
+        assert flashattn.LAUNCHES - before == (cfg.n_layers if dev == cuda
+                                               else 0)
+        steps = [logits]
+        for t in range(66, 70):
+            lg, cache = tf.decode_step(params, cfg, cache, toks[:, t:t + 1],
+                                       t, device=dev)
+            steps.append(lg)
+        out[str(dev)] = [s.cpu() for s in steps]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
+    return tree.numpy()

@@ -26,14 +26,19 @@ def _port_modules():
 
 def test_import_loads_no_jax_and_no_reference_module():
     mods = _port_modules()
-    assert "repro_torch.kernels.ops" in mods and "repro_torch.convert" in mods
+    for m in ("repro_torch.kernels.ops", "repro_torch.convert",
+              "repro_torch.kernels.flashattn", "repro_torch.configs",
+              "repro_torch.models", "repro_torch.models.transformer",
+              "repro_torch.models.steps"):
+        assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
             importlib.import_module(m)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
-                     or m == "repro" or m.startswith("repro."))
+                     or m == "repro" or m.startswith("repro.")
+                     or m == "triton" or m.startswith("triton."))
         print("BAD", bad)
     """)
     env = dict(os.environ, PYTHONPATH=SRC)
@@ -88,3 +93,36 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         solve(NoDevice(), 2, block_size=2)
     assert TieredStore(device="cpu").device.type == "cpu"
+
+
+def test_model_entry_points_without_device_raise_without_cuda(monkeypatch):
+    from repro_torch import configs
+    from repro_torch.convert import params_from_arrays
+    from repro_torch.models import steps, transformer as tf
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.reduced("yi-9b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.init_model(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_arrays({"w": np.zeros(2, np.float32)})
+    params = tf.init_model(0, cfg, device="cpu")   # the caller asks
+    tokens = np.zeros((1, 4), np.int32)            # no tensor: no device
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.prefill_with_cache(params, cfg, tokens)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.logits_fn(params, cfg, tokens)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.build_prefill_step(cfg)(params, {"tokens": tokens})
+    logits, cache = tf.prefill_with_cache(params, cfg, tokens, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.decode_step(params, cfg, cache, tokens[:, :1], 4)
+    # CPU tensors are the caller asking for the CPU
+    logits, cache = tf.prefill_with_cache(params, cfg,
+                                          torch.from_numpy(tokens),
+                                          cache_len=5)
+    out, _ = steps.build_decode_step(cfg)(params, cache,
+                                          torch.zeros((1, 1), dtype=torch.int32),
+                                          4)
+    assert logits.device.type == out.device.type == "cpu"

@@ -8,6 +8,13 @@ absolute floor of 1e-6 times the output's largest magnitude, because the
 two libraries sum the same f32 products in different orders (an element
 that nearly cancels has no relative accuracy to compare).
 
+Flash attention's plain version, `attention_ref`, is held to
+`repro.kernels.flashattn_ref.attention_ref` at rtol/atol 2e-5, the
+tolerance of tests/test_flashattn.py. The reference's Pallas body cannot
+be the oracle: on jax 0.9.0 it fails to trace even with interpret=True
+(`pltpu.TPUCompilerParams` is gone; ROADMAP.md queue 3). These tests draw
+from their own seeded generators, not the session `rng`.
+
 The CUDA kernels themselves are held to their plain versions on the card
 by tests/test_torch_gpu.py.
 """
@@ -21,6 +28,7 @@ import torch
 from repro.graphs import pack_tiles as ref_pack_tiles
 from repro.graphs import rmat_graph as ref_rmat_graph
 from repro.kernels import ops as ref_ops
+from repro.kernels.flashattn_ref import attention_ref as ref_attention
 from repro.kernels.gram_ref import gram_ref as ref_gram
 from repro.kernels.spmm_ref import coo_spmm_ref as ref_coo
 from repro.kernels.spmm_ref import spmm_ref as ref_spmm
@@ -28,6 +36,7 @@ from repro.kernels.tsgemm_ref import tsgemm_ref as ref_tsgemm
 from repro_torch.convert import tiled_from_arrays
 from repro_torch.graphs import pack_tiles, rmat_graph, to_dense
 from repro_torch.graphs import rmat_spectral
+from repro_torch.kernels import flashattn as flash_kernel
 from repro_torch.kernels import gram as gram_kernel
 from repro_torch.kernels import ops
 from repro_torch.kernels import spmm_tile, tsgemm as tsgemm_kernel
@@ -205,3 +214,62 @@ def test_cpu_tensors_take_plain_version_and_never_launch(rng):
                                    _t(tm.row_ptr), a)
     with pytest.raises(ValueError, match="impl"):
         ops.gram(a, a, impl="emulate")
+
+
+# --------------------------------------------------------------- attention
+
+def _qkv(b, h, hkv, sq, sk, d, seed):
+    g = np.random.default_rng(seed)
+    return (g.standard_normal((b, h, sq, d)).astype(np.float32),
+            g.standard_normal((b, hkv, sk, d)).astype(np.float32),
+            g.standard_normal((b, hkv, sk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (128, 128, 32, True), (256, 256, 16, True), (64, 128, 32, False),
+    (128, 128, 64, True), (96, 96, 16, True)])
+def test_attention_plain_vs_reference(sq, sk, d, causal):
+    """The shapes of tests/test_flashattn.py::test_flash_vs_ref, one head."""
+    q, k, v = (a[0, 0] for a in _qkv(1, 1, 1, sq, sk, d, seed=sq + d))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    want = ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_plain_grouped_heads_vs_reference(causal):
+    """GQA: 4 query heads on 2 KV heads; head h reads KV head h // 2."""
+    q, k, v = _qkv(2, 4, 2, 40, 40, 16, seed=7)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal).numpy()
+    for b in range(2):
+        for h in range(4):
+            want = ref_attention(jnp.asarray(q[b, h]),
+                                 jnp.asarray(k[b, h // 2]),
+                                 jnp.asarray(v[b, h // 2]), causal=causal)
+            np.testing.assert_allclose(got[b, h], np.asarray(want),
+                                       rtol=2e-5, atol=2e-5)
+
+
+def test_attention_plain_q_offset_and_scale_vs_reference():
+    """A q block that starts at position 32 of 96 keys, and a given scale."""
+    from repro_torch.kernels.flashattn_ref import attention_ref
+    q, k, v = (a[0, 0] for a in _qkv(1, 1, 1, 32, 96, 32, seed=9))
+    for kw in (dict(q_offset=32), dict(q_offset=64, sm_scale=0.1)):
+        got = attention_ref(_t(q), _t(k), _t(v), causal=True, **kw)
+        want = ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_flash_attention_cpu_tensors_never_launch():
+    q, k, v = (_t(a) for a in _qkv(1, 4, 2, 16, 16, 16, seed=1))
+    before = flash_kernel.LAUNCHES
+    for dtype in (torch.float32, torch.bfloat16):
+        out = ops.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+        assert out.dtype == dtype and out.shape == q.shape
+    assert flash_kernel.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_kernel.flash_attention(q, k, v)
