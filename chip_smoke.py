@@ -15,7 +15,10 @@ otherwise. Phases, each of which fails the run:
      4 entries, uploaded to the card in a GraphOperator;
   4. kernels: each kernel at the shapes the solve gives it, held against
      its plain PyTorch version on the same inputs, timed beside the plain
-     version, one PyTorch library call and the card's bound;
+     version, one PyTorch library call and the card's bound; the SpMM
+     with the operator's work plan (printed: work items, split rows,
+     heaviest chunk), run-to-run bit identity, and its heaviest work item
+     timed alone;
   5. end to end: `solve(op, 8, method="krylov_schur", block_size=4,
      num_blocks=8, tol=1e-5, max_iters=100)` on a CUDA TieredStore, with
      the launch counters zeroed just before and read just after; it must
@@ -30,7 +33,8 @@ otherwise. Phases, each of which fails the run:
      yi-9b prefill shapes (B 4, S 2048, H 32, Hkv 4, d 128, causal) and at
      a ragged non-causal shape (Sq 96, Sk 160, d 64), run-to-run bit
      identity, timed beside the plain version, PyTorch's
-     scaled_dot_product_attention and the card's bound;
+     scaled_dot_product_attention and the card's bound, with its TFLOP/s
+     and the PV design the bf16 kernel ships (P split into bf16 hi + lo);
   9. yi-9b serving at full width and all 48 layers in bf16, weights drawn
      on the card by `init_model` from a seed: 4 requests of 2,048 prompt
      tokens through `prefill_with_cache(..., cache_len=2080)`, then 32
@@ -45,6 +49,7 @@ Then one JSON line of kernels, the card line, and the final result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -71,8 +76,9 @@ REPS = 10
 
 # flash attention at yi-9b's prefill shapes (B, H, Hkv, S, d), bf16
 FLASH_SERVE = (4, 32, 4, 2048, 128)
-# one bf16 rounding of the output is at most 2^-9 of the value; the f32
-# arithmetic of kernel and plain version differ by ~1e-6: twice the first
+# one bf16 rounding of the output is half an ulp, 2^-9 to 2^-8 of the
+# value (2^-8 only just above a power of two); the f32 arithmetic of
+# kernel and plain version differ by ~1e-6
 FLASH_TOL = 2.0 ** -8          # of the output's largest magnitude
 
 # yi-9b serving: prompt tokens per request, requests, decode steps, seed
@@ -207,8 +213,11 @@ def kernel_phase(torch, op, timer):
     x = randn(n, BLOCK_SIZE)
     blocks, cols, ptr = op._blocks, op._block_cols, op._row_ptr
 
-    # --- spmm_blocksparse -------------------------------------------------
-    y = ops.spmm_blocks(blocks, cols, ptr, x)
+    # --- spmm_blocksparse ---------------------------------------------------
+    plan = op._plan
+    y = ops.spmm_blocks(blocks, cols, ptr, x, plan=plan)
+    if not torch.equal(y, ops.spmm_blocks(blocks, cols, ptr, x, plan=plan)):
+        fail("spmm_blocksparse is not bit-identical from run to run")
     y_ref = ops.spmm_blocks(blocks, cols, ptr, x, impl="ref")
     # Σ|terms| per output; the normalized adjacency has no negative entry,
     # so the image itself serves and no 13 GB |blocks| copy is made
@@ -217,7 +226,7 @@ def kernel_phase(torch, op, timer):
     err = rel_err(y, y_ref, scale)
     abs_err = float((y - y_ref).abs().max())
     del y_ref, scale, abs_blocks
-    ms = timer.ms(lambda: ops.spmm_blocks(blocks, cols, ptr, x))
+    ms = timer.ms(lambda: ops.spmm_blocks(blocks, cols, ptr, x, plan=plan))
     plain = timer.ms(lambda: ops.spmm_blocks(blocks, cols, ptr, x,
                                              impl="ref"), reps=3)
     nb, bm, bn = blocks.shape
@@ -233,19 +242,29 @@ def kernel_phase(torch, op, timer):
         lib_ms = timer.ms(lambda: bsr @ x, reps=3)
     except (RuntimeError, NotImplementedError) as e:  # yardstick only
         lib_note = f"BSR product unavailable: {str(e).splitlines()[0]}"
-    # the heaviest block row alone: its share of the whole launch
-    per_row = (ptr[1:] - ptr[:-1]).cpu()
-    heavy = int(per_row.argmax())
-    lo, hi = int(ptr[heavy]), int(ptr[heavy + 1])
-    sub_ptr = torch.tensor([0, hi - lo], dtype=torch.int32, device=dev)
+    # the heaviest work item alone (the plan's first), writing Y directly:
+    # what is left of the skew that one block row used to set
+    row, lo, hi, _ = plan.items[0].tolist()
+    alone = dataclasses.replace(
+        plan, splits=plan.splits[:0],
+        items=torch.tensor([[row, lo, hi, -1]], dtype=torch.int32,
+                           device=dev), n_partials=0)
     heavy_ms = timer.ms(lambda: spmm_tile.spmm_blocksparse(
-        blocks[lo:hi], cols[lo:hi], sub_ptr, x))
+        blocks, cols, ptr, x, plan=alone))
+    per_row = (ptr[1:] - ptr[:-1]).cpu()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"kernel spmm_blocksparse: plan chunk {plan.chunk} | "
+        f"{plan.items.shape[0]} work items for {plan.n_block_rows} block "
+        f"rows, {plan.splits.shape[0]} rows split into {plan.n_partials} "
+        f"chunks | heaviest block row {int(per_row.max())} blocks, "
+        f"heaviest work item {plan.heaviest} blocks (per-SM share "
+        f"{nb / sms:.0f})")
     log(f"kernel spmm_blocksparse: blocks {tuple(blocks.shape)} x "
         f"{tuple(x.shape)} | rel err {err:.3e} (tol {KERNEL_TOL:g} of "
-        f"Σ|terms|), max abs err {abs_err:.3e} | {ms:.3f} ms, plain "
-        f"{plain:.3f} ms, library {lib_ms} ms ({lib_note}), bound "
-        f"{bms:.3f} ms ({by}) | heaviest block row {heavy} "
-        f"({hi - lo} blocks) alone {heavy_ms:.3f} ms = "
+        f"Σ|terms|), max abs err {abs_err:.3e}, bit-identical run to run | "
+        f"{ms:.3f} ms, plain {plain:.3f} ms, library {lib_ms} ms "
+        f"({lib_note}), bound {bms:.3f} ms ({by}) | heaviest work item "
+        f"(block row {row}, blocks {lo}..{hi}) alone {heavy_ms:.3f} ms = "
         f"{heavy_ms / ms:.2f} of the launch")
     if not err <= KERNEL_TOL:
         fail(f"spmm_blocksparse disagrees with its plain version: {err}")
@@ -254,7 +273,7 @@ def kernel_phase(torch, op, timer):
                  "replaces": "src/repro/kernels/spmm_tile.py:50",
                  "module": spmm_tile, "max_abs_err": abs_err, "ms": ms,
                  "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                 "library_ms": lib_ms, "heavy_row_ms": heavy_ms})
+                 "library_ms": lib_ms})
 
     # --- gram ---------------------------------------------------------------
     a, b = randn(n, BLOCK_SIZE), randn(n, BLOCK_SIZE)
@@ -457,7 +476,8 @@ def flash_phase(torch, timer, dev):
         f"bit-identical run to run | {ms:.3f} ms = "
         f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s, plain {plain:.3f} ms, "
         f"library scaled_dot_product_attention {lib_ms:.3f} ms, bound "
-        f"{bms:.4f} ms ({by}, bf16 tensor-core peak)")
+        f"{bms:.4f} ms ({by}, bf16 tensor-core peak) | PV design shipped: "
+        f"{flashattn.PV_DESIGN}")
     if not rel <= FLASH_TOL:
         fail(f"flash_attention disagrees with its plain version: {rel}")
     torch.cuda.synchronize()
@@ -591,7 +611,8 @@ def serve_breakdown(torch, tf, params, cfg, prompt, steps: int = 4) -> None:
     steps, beside their wall time (the idle share says how far the host
     holds the card back)."""
     from torch.profiler import ProfilerActivity, profile
-    kinds = {"flash_attention": ("flash_attention_kernel",),
+    kinds = {"flash_attention": ("flash_attention_kernel",
+                                 "flash_wgmma_kernel"),
              "gemm": ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass"),
              "memcpy": ("Memcpy", "Memset")}
     cache_len = prompt.shape[1] + steps

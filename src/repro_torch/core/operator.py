@@ -18,6 +18,7 @@ from repro_torch.core.tiered import TieredStore
 from repro_torch.device import resolve_device
 from repro_torch.graphs.tiles import TiledMatrix
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import spmm_tile
 from repro_torch.kernels.spmm_ref import coo_spmm_ref
 from repro_torch.obs import trace
 
@@ -55,8 +56,9 @@ class GraphOperator:
     stay there. Every matmat accounts the whole image as one slow-tier
     read against the store, exactly as the reference's default
     (non-streamed) mode does, so the two packages' I/O counters agree.
-    The dense part runs the `spmm_blocksparse` kernel on CUDA; the COO
-    side path is plain PyTorch (`coo_spmm_ref`, a segment sum whose
+    The dense part runs the `spmm_blocksparse` kernel on CUDA, with the
+    image's work plan (`spmm_tile.plan`) built once here; the COO side
+    path is plain PyTorch (`coo_spmm_ref`, a segment sum whose
     `index_add_` uses atomics on CUDA, so its sum order, and the last
     bits of Y, change from run to run).
 
@@ -82,6 +84,8 @@ class GraphOperator:
         self._blocks = torch.from_numpy(tm.blocks).to(dev)
         self._block_cols = torch.from_numpy(tm.block_cols).to(dev)
         self._row_ptr = torch.from_numpy(tm.row_ptr).to(dev)
+        # the SpMM kernel's work plan: heavy block rows split over CTAs
+        self._plan = spmm_tile.plan(self._row_ptr)
         self._coo = (torch.from_numpy(tm.coo_rows).to(dev),
                      torch.from_numpy(tm.coo_cols).to(dev),
                      torch.from_numpy(tm.coo_vals).to(dev))
@@ -93,7 +97,8 @@ class GraphOperator:
             if self.store is not None:  # account the matrix image stream
                 self.store.account_read(self._image_bytes)
             y = kops.spmm_blocks(self._blocks, self._block_cols,
-                                 self._row_ptr, x, impl=self.impl)
+                                 self._row_ptr, x, impl=self.impl,
+                                 plan=self._plan)
             rows, cols, vals = self._coo
             if vals.shape[0]:
                 y = y + coo_spmm_ref(rows, cols, vals, x, self.n)

@@ -4,7 +4,8 @@
 blocks are stored densely in block-row-major order and indexed by a CSR
 over block rows (the paper's §3.3.1 "matrix index"); blocks with fewer
 than `min_block_nnz` entries fall through to a COO remainder. The SpMM
-kernel walks `row_ptr` directly, one CTA per block row.
+kernel follows a work plan of `row_ptr` (`kernels.spmm_tile.plan`) that
+splits the heavy block rows over several CTAs.
 
 The paper's 2-byte SCSR+COO codec and `chunk_block_rows` (the unit of
 the SSD-streamed image) are not ported yet: they belong to the SAFS

@@ -31,8 +31,8 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 # C signature of every exported function: (argtypes, restype = int error)
 SIGNATURES = {
-    "repro_spmm_blocksparse_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _P],
+    "repro_spmm_blocksparse_f32": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
+                                   _I, _I, _I, _P],
     "repro_gram_f32": [_P, _P, _P, _P, _LL, _I, _I, _I, _LL, _F, _I, _P],
     "repro_tsgemm_f32": [_P, _P, _P, _P, _LL, _I, _I, _F, _F, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -60,8 +60,8 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(sources: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(sources: list[Path], flags: list[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in sources:
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -82,13 +82,16 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
     return [out for _, out, _ in outs]
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, defines: tuple[str, ...] = ()) -> Path:
     """Compile every csrc/*.cu (in parallel) and link them into one shared
     library; returns its path. Reuses an existing build of the same
     sources and flags. verbose prints ptxas's register and shared-memory
-    report for every kernel."""
+    report for every kernel. `defines` (macros passed as -D) build a
+    variant under a name of its own, for a comparison on the card: the
+    port's library (`lib()`) is built without any."""
     sources = _sources()
-    lib_path = BUILD_DIR / f"librepro_kernels_{_digest(sources)}.so"
+    flags = [*NVCC_FLAGS, *(f"-D{name}" for name in defines)]
+    lib_path = BUILD_DIR / f"librepro_kernels_{_digest(sources, flags)}.so"
     if lib_path.exists():
         return lib_path
     nvcc = nvcc_path()
@@ -96,7 +99,7 @@ def build(verbose: bool = False) -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in sources]
         ptxas = ["-Xptxas", "-v"] if verbose else []
-        outs = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", str(s), "-o",
+        outs = _run_all([[nvcc, *flags, *ptxas, "-c", str(s), "-o",
                           str(o)] for s, o in zip(sources, objs)])
         if verbose:
             print("".join(outs), flush=True)
@@ -107,17 +110,22 @@ def build(verbose: bool = False) -> Path:
     return lib_path
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """The shared library at `path`, every exported function typed."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
+            _lib = load(build())
         return _lib
 
 

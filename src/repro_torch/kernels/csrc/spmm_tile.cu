@@ -9,26 +9,32 @@
 // each 64x64 block (16 KB) feeds 32 KFLOP, two operations per byte, far
 // below both the float32 and the tensor-core ridge points. One matmat over
 // the n = 2^20 R-MAT image reads 12.86 GB of blocks: about 3.8 ms at
-// 3.35 TB/s.
+// 3.35 TB/s. What kept the first design (one CTA per block row) far from
+// that was skew, not bytes: the image's heaviest block row holds 7,635
+// blocks, 160 times the mean, and one SM walked it alone for 0.87 of the
+// launch.
 //
 // Design:
-//   * one CTA per block row walks row_ptr[r] .. row_ptr[r+1] in order, so
-//     each output element has one fixed order of summation (blocks in CSR
-//     order, columns in order inside a block) and no atomics or
-//     cross-CTA reduction are needed;
-//   * a block is read with 16-byte coalesced loads into registers one
-//     block ahead of the product (software pipelining: the next block's
-//     loads are in flight while the current block is multiplied), then
-//     stored to shared memory with a padded row stride (bn + 1) so the
-//     threads of a warp that read different rows hit different banks;
+//   * a work plan (spmm_tile.plan, built once per image on the host) cuts
+//     every block row longer than `chunk` blocks into contiguous chunks of
+//     near-equal length; one CTA takes one work item (block row, [lo, hi),
+//     partial slot), and the items are ordered longest first, so the long
+//     chunks start while the short rows fill the tail;
+//   * a CTA walks its blocks in CSR order; a block is read with 16-byte
+//     coalesced loads into registers one block ahead of the product
+//     (software pipelining: the next block's loads are in flight while the
+//     current block is multiplied), then stored to shared memory with a
+//     padded row stride (bn + 1) so the threads of a warp that read
+//     different rows hit different banks;
 //   * the (bn x k) slab of X at block_cols[j] is gathered one block ahead
 //     too, from the same registers-then-shared-memory path;
-//   * the (bm x k) outputs stay in registers for the whole row and are
-//     written once; a block row with no blocks writes zeros, which does
-//     the job of the reference's empty-row mask.
-// Not done here: splitting the heaviest block rows over several CTAs with
-// a fixed-order second reduction. On the R-MAT image one block row holds
-// 7,635 blocks (125 MB) and runs on one SM.
+//   * the (bm x k) outputs stay in registers for the whole item and are
+//     written once: straight to Y for an unsplit row (zeros for an empty
+//     one, which does the job of the reference's empty-row mask), or to
+//     the item's slot of a partials scratch for a split row;
+//   * a second launch sums each split row's partials in chunk order and
+//     writes Y. Every sum runs in an order fixed by the plan, with no
+//     atomics, so Y is bit-identical from run to run.
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,17 +47,17 @@ template <int VEC>  // float4 loads per thread per block: bm*bn <= 1024*VEC
 __global__ void __launch_bounds__(kThreads)
 spmm_blocksparse_kernel(const float* __restrict__ blocks,
                         const int* __restrict__ block_cols,
-                        const int* __restrict__ row_ptr,
-                        const float* __restrict__ x,
-                        float* __restrict__ y, int bm, int bn, int k) {
+                        const int4* __restrict__ items,
+                        const float* __restrict__ x, float* __restrict__ y,
+                        float* __restrict__ partials, int bm, int bn, int k) {
   extern __shared__ float smem[];
   const int ld = bn + 1;
   float* a_s = smem;                // bm rows of stride ld
   float* x_s = smem + bm * ld;      // bn x k, row-major
   const int tid = threadIdx.x;
-  const int r = blockIdx.x;
-  const int lo = row_ptr[r];
-  const int hi = row_ptr[r + 1];
+  const int4 item = items[blockIdx.x];  // block row, lo, hi, slot or -1
+  const int lo = item.y;
+  const int hi = item.z;
   const int blk_vec = (bm * bn) / 4;
   const int x_elems = bn * k;
   const int n_out = bm * k;
@@ -114,7 +120,8 @@ spmm_blocksparse_kernel(const float* __restrict__ blocks,
     }
   }
 
-  float* yr = y + static_cast<size_t>(r) * n_out;
+  float* yr = item.w < 0 ? y + static_cast<size_t>(item.x) * n_out
+                         : partials + static_cast<size_t>(item.w) * n_out;
 #pragma unroll
   for (int t = 0; t < kMaxOut; ++t) {
     const int o = tid + t * kThreads;
@@ -122,10 +129,27 @@ spmm_blocksparse_kernel(const float* __restrict__ blocks,
   }
 }
 
+// Y rows of the split block rows: the sum of their chunks' partials in
+// chunk order. splits: (n_split, 3) of block row, first slot, chunks.
+__global__ void __launch_bounds__(kThreads)
+spmm_blocksparse_combine_kernel(const int* __restrict__ splits,
+                                const float* __restrict__ partials,
+                                float* __restrict__ y, int n_out) {
+  const int row = splits[3 * blockIdx.x];
+  const int slot0 = splits[3 * blockIdx.x + 1];
+  const int n = splits[3 * blockIdx.x + 2];
+  for (int o = threadIdx.x; o < n_out; o += kThreads) {
+    const float* part = partials + static_cast<size_t>(slot0) * n_out + o;
+    float s = part[0];
+    for (int c = 1; c < n; ++c) s += part[static_cast<size_t>(c) * n_out];
+    y[static_cast<size_t>(row) * n_out + o] = s;
+  }
+}
+
 template <int VEC>
 cudaError_t launch(const float* blocks, const int* block_cols,
-                   const int* row_ptr, const float* x, float* y,
-                   int n_block_rows, int bm, int bn, int k,
+                   const int4* items, int n_items, const float* x, float* y,
+                   float* partials, int bm, int bn, int k,
                    cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(bm * (bn + 1) + bn * k) *
                       sizeof(float);
@@ -133,33 +157,41 @@ cudaError_t launch(const float* blocks, const int* block_cols,
       spmm_blocksparse_kernel<VEC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  spmm_blocksparse_kernel<VEC><<<n_block_rows, kThreads, smem, stream>>>(
-      blocks, block_cols, row_ptr, x, y, bm, bn, k);
+  spmm_blocksparse_kernel<VEC><<<n_items, kThreads, smem, stream>>>(
+      blocks, block_cols, items, x, y, partials, bm, bn, k);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Shape limits the caller checks first: bn % 4 == 0, bm * bn <= 4096,
-// bm * k <= 2048, bn * k <= 1024; blocks and x 16-byte aligned.
+// bm * k <= 2048, bn * k <= 1024; blocks, x and items 16-byte aligned.
+// items (n_items, 4) and splits (n_split, 3) are a plan of the image
+// (spmm_tile.plan): every block row is covered, and partials holds one
+// (bm x k) slot per chunk of a split row.
 extern "C" int repro_spmm_blocksparse_f32(const float* blocks,
                                           const int* block_cols,
-                                          const int* row_ptr, const float* x,
-                                          float* y, int n_block_rows, int bm,
-                                          int bn, int k, int device,
-                                          void* stream) {
+                                          const int* items, int n_items,
+                                          const int* splits, int n_split,
+                                          const float* x, float* y,
+                                          float* partials, int bm, int bn,
+                                          int k, int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   const int vec = (bm * bn / 4 + kThreads - 1) / kThreads;
+  const int4* it = reinterpret_cast<const int4*>(items);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (vec <= 1)
-    err = launch<1>(blocks, block_cols, row_ptr, x, y, n_block_rows, bm, bn, k, s);
+    err = launch<1>(blocks, block_cols, it, n_items, x, y, partials, bm, bn, k, s);
   else if (vec <= 2)
-    err = launch<2>(blocks, block_cols, row_ptr, x, y, n_block_rows, bm, bn, k, s);
+    err = launch<2>(blocks, block_cols, it, n_items, x, y, partials, bm, bn, k, s);
   else if (vec <= 4)
-    err = launch<4>(blocks, block_cols, row_ptr, x, y, n_block_rows, bm, bn, k, s);
+    err = launch<4>(blocks, block_cols, it, n_items, x, y, partials, bm, bn, k, s);
   else
     err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  if (err != cudaSuccess || n_split == 0) return static_cast<int>(err);
+  spmm_blocksparse_combine_kernel<<<n_split, kThreads, 0, s>>>(
+      splits, partials, y, bm * k);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,9 @@ masks by absolute position, with q_offset the global position of q's
 first row.
 
 The weights stay float32 into the PV product, as in the TPU kernel
-(`repro/kernels/flashattn.py`) and the CUDA kernel; the reference model's
-`_attend` rounds them to v's dtype first.
+(`repro/kernels/flashattn.py`) and the CUDA kernel's float32 path; its
+bf16 path feeds them as a bf16 pair (P_hi + P_lo, 16 bits), and the
+reference model's `_attend` rounds them to v's dtype first.
 """
 from __future__ import annotations
 

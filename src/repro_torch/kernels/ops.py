@@ -52,11 +52,16 @@ def empty_row_mask(row_ptr: np.ndarray, bm: int) -> np.ndarray:
 
 def spmm_blocks(blocks: torch.Tensor, block_cols: torch.Tensor,
                 row_ptr: torch.Tensor, x: torch.Tensor, *,
-                impl: Impl = "auto") -> torch.Tensor:
+                impl: Impl = "auto",
+                plan: _spmm_kernel.Plan | None = None) -> torch.Tensor:
     """Block-sparse part of SpMM over the CSR `row_ptr`. Rows of empty
-    block rows come out zero on both paths."""
+    block rows come out zero on both paths. `plan` is the image's work
+    plan for the kernel (`spmm_tile.plan`, built once per image); the
+    kernel builds one from row_ptr when none is given, and the plain
+    version ignores it."""
     if _use_kernel(impl, x):
-        return _spmm_kernel.spmm_blocksparse(blocks, block_cols, row_ptr, x)
+        return _spmm_kernel.spmm_blocksparse(blocks, block_cols, row_ptr, x,
+                                             plan=plan)
     n_block_rows = row_ptr.shape[0] - 1
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     block_rows = torch.repeat_interleave(
@@ -110,8 +115,10 @@ def gram(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, impl: Impl = "auto") -> torch.Tensor:
     """Softmax attention, scale 1/√d: q (B, H, Sq, d), k/v (B, Hkv, Sk, d)
-    with H % Hkv == 0 → (B, H, Sq, d) in q's dtype. Weights and sums stay
-    float32 on both paths."""
+    with H % Hkv == 0 → (B, H, Sq, d) in q's dtype. Scores and sums are
+    float32 on both paths; the weights are float32 too, except in the
+    kernel's bf16 path, which feeds them to the PV product as a bf16 pair
+    (16 bits)."""
     if _use_kernel(impl, q):
         return _flash_kernel.flash_attention(q, k, v, causal=causal)
     return attention_ref(q, k, v, causal=causal)

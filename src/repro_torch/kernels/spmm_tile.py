@@ -3,29 +3,146 @@
 
 A is given as dense non-empty (bm×bn) blocks in block-row-major order, an
 int32 block column per block and the int32 CSR `row_ptr` over block rows.
-The kernel walks `row_ptr` (one CTA per block row) and writes every
-output row, zeros for empty block rows. Its plain version is
-`spmm_ref.spmm_ref`.
+The kernel follows a work `plan` of the image: every block row longer
+than `chunk` blocks is cut into contiguous chunks of near-equal length,
+one CTA per work item, longest first; split rows get their chunks'
+partials summed in chunk order by a second launch. Every output row is
+written, zeros for empty block rows, and the result is bit-identical from
+run to run. Its plain version is `spmm_ref.spmm_ref`.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import require_cuda_f32, require_int32
 
-LAUNCHES = 0   # kernel launches by this process (chip_smoke reads it)
+LAUNCHES = 0   # spmm_blocksparse calls that launched (chip_smoke reads it)
+
+N_SMS = 132   # an H100 SXM's SMs: the default chunk of a plan on the CPU
+CHUNK_MIN, CHUNK_MAX = 16, 512
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Plan:
+    """Work plan of one block-sparse image.
+
+    row_ptr: the int32 CSR tensor the plan describes, on the plan's
+             device; `spmm_blocksparse` takes the plan with this tensor
+             only (see `describes`).
+    items:   (n_items, 4) int32 rows of block row, lo, hi (a contiguous
+             range of blocks in CSR order) and partial slot, or -1 when
+             the item is its whole row and writes Y directly; longest
+             first.
+    splits:  (n_split, 3) int32 rows of block row, first slot, chunks, for
+             every split row; a row's slots are consecutive, in chunk
+             order.
+    """
+    row_ptr: torch.Tensor
+    items: torch.Tensor
+    splits: torch.Tensor
+    n_block_rows: int
+    n_blocks: int
+    n_partials: int
+    chunk: int
+
+    @property
+    def heaviest(self) -> int:
+        """Blocks in the longest work item (0 for an empty image)."""
+        if self.items.shape[0] == 0:
+            return 0
+        first = self.items[0].tolist()
+        return first[2] - first[1]
+
+    def describes(self, row_ptr: torch.Tensor) -> bool:
+        """Whether `row_ptr` is the tensor this plan was built from: the
+        same memory, shape and device. The plan holds that tensor, so no
+        other can take its memory; an edit in place is not seen."""
+        mine = self.row_ptr
+        return mine is row_ptr or (
+            mine.device == row_ptr.device and mine.shape == row_ptr.shape
+            and mine.data_ptr() == row_ptr.data_ptr())
+
+
+def default_chunk(n_blocks: int, n_sms: int = N_SMS) -> int:
+    """An eighth of the per-SM share of blocks on a card of `n_sms` SMs,
+    within [CHUNK_MIN, CHUNK_MAX]: a chunk stays far below what one SM has
+    to walk, and a row is not split into pieces whose partials cost more
+    than they save. For the 784,953 blocks of the 2^20-vertex R-MAT image
+    on an H100 SXM it is 512."""
+    return int(min(CHUNK_MAX, max(CHUNK_MIN, n_blocks // (8 * n_sms))))
+
+
+def plan(row_ptr, *, chunk: int | None = None, device=None) -> Plan:
+    """The work plan of the CSR `row_ptr` over block rows (numpy, or a
+    tensor, which costs one copy to the host when it lies on the card).
+    The plan's tensors go to `device`, by default row_ptr's (the CPU for
+    numpy); its `row_ptr` is row_ptr on that device, the given tensor
+    itself when it lies there. Every block row longer than `chunk` blocks
+    (default `default_chunk` for the SMs of a CUDA device, or N_SMS)
+    becomes ⌈len/chunk⌉ contiguous chunks whose lengths differ by at most
+    one; every other row, empty ones included, is one item. Items are
+    ordered longest first, ties in CSR order."""
+    if isinstance(row_ptr, torch.Tensor):
+        device = torch.device(row_ptr.device if device is None else device)
+        ptr_t = row_ptr.to(device=device, dtype=torch.int32)
+        ptr = row_ptr.cpu().numpy().astype(np.int64)
+    else:
+        device = torch.device("cpu" if device is None else device)
+        ptr = np.asarray(row_ptr, dtype=np.int64)
+        ptr_t = torch.from_numpy(ptr.astype(np.int32)).to(device)
+    if ptr.ndim != 1 or ptr.size == 0:
+        raise ValueError("plan: row_ptr must be (n_block_rows + 1,)")
+    counts = np.diff(ptr)
+    n_blocks = int(ptr[-1])
+    if chunk is None:
+        n_sms = (torch.cuda.get_device_properties(device).multi_processor_count
+                 if device.type == "cuda" else N_SMS)
+        chunk = default_chunk(n_blocks, n_sms)
+    if chunk < 1:
+        raise ValueError(f"plan: chunk must be >= 1, got {chunk}")
+    pieces = np.maximum(1, -(-counts // chunk))
+    row = np.repeat(np.arange(counts.size), pieces)
+    j = np.arange(row.size) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    n, length, start = pieces[row], counts[row], ptr[row]
+    lo = start + length * j // n
+    hi = start + length * (j + 1) // n
+    split = pieces > 1
+    split_pieces = np.where(split, pieces, 0)
+    slot0 = np.cumsum(split_pieces) - split_pieces
+    slot = np.where(split[row], slot0[row] + j, -1)
+    order = np.argsort(lo - hi, kind="stable")          # longest first
+    items = np.stack([row, lo, hi, slot], axis=1)[order].astype(np.int32)
+    splits = np.stack([np.flatnonzero(split), slot0[split], pieces[split]],
+                      axis=1).astype(np.int32)
+    return Plan(row_ptr=ptr_t, items=torch.from_numpy(items).to(device),
+                splits=torch.from_numpy(splits).to(device),
+                n_block_rows=counts.size, n_blocks=n_blocks,
+                n_partials=int(split_pieces.sum()), chunk=int(chunk))
+
+
+_plan = plan   # `spmm_blocksparse` takes a `plan` argument of the same name
 
 
 def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
-                     row_ptr: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+                     row_ptr: torch.Tensor, x: torch.Tensor, *,
+                     plan: Plan | None = None) -> torch.Tensor:
     """Y = A @ X for a block-sparse A.
 
     blocks:     (nb, bm, bn) float32
     block_cols: (nb,) int32
     row_ptr:    (n_block_rows + 1,) int32
     x:          (n_block_cols*bn, k) float32
+    plan:       the work plan of this row_ptr tensor (`plan(row_ptr)`),
+                refused for any other; without one the wrapper builds it
+                from row_ptr (a copy to the host)
     returns     (n_block_rows*bm, k) float32
+
+    One call is one count in LAUNCHES, though a plan with split rows
+    launches a second, combining kernel.
     """
     global LAUNCHES
     dev = require_cuda_f32("spmm_blocksparse", blocks=blocks, x=x)
@@ -50,13 +167,30 @@ def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
     if blocks.data_ptr() % 16:
         raise ValueError("spmm_blocksparse: blocks must be 16-byte aligned")
     n_block_rows = row_ptr.shape[0] - 1
+    if plan is None:
+        plan = _plan(row_ptr)
+    elif not plan.describes(row_ptr):
+        raise ValueError("spmm_blocksparse: the plan was built from another "
+                         "row_ptr tensor; pass plan(row_ptr) of this one")
+    if plan.n_blocks != nb:
+        raise ValueError(f"spmm_blocksparse: row_ptr covers {plan.n_blocks} "
+                         f"blocks, blocks holds {nb}")
+    require_int32("spmm_blocksparse", dev, plan_items=plan.items,
+                  plan_splits=plan.splits)
+    if plan.items.data_ptr() % 16:
+        raise ValueError("spmm_blocksparse: plan.items must be 16-byte "
+                         "aligned (read as int4)")
     y = torch.empty((n_block_rows * bm, k), dtype=torch.float32, device=dev)
     if n_block_rows == 0:
         return y
+    partials = torch.empty((plan.n_partials, bm * k), dtype=torch.float32,
+                           device=dev)
     device, stream = _build.device_and_stream(x)
     err = _build.lib().repro_spmm_blocksparse_f32(
-        blocks.data_ptr(), block_cols.data_ptr(), row_ptr.data_ptr(),
-        x.data_ptr(), y.data_ptr(), n_block_rows, bm, bn, k, device, stream)
+        blocks.data_ptr(), block_cols.data_ptr(), plan.items.data_ptr(),
+        plan.items.shape[0], plan.splits.data_ptr(), plan.splits.shape[0],
+        x.data_ptr(), y.data_ptr(), partials.data_ptr(), bm, bn, k, device,
+        stream)
     _build.check(err, "spmm_blocksparse")
     LAUNCHES += 1
     return y

@@ -4,13 +4,15 @@ a machine with one (no JAX needed) run
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
-Tolerance: rtol 1e-6 of the output's largest magnitude for SpMM and
+Tolerance: rtol 1e-6 of the output's largest magnitude for SpMM (split
+rows sum their chunks in another order than the plain version) and
 TSGEMM; a Gram entry sums n products, so its difference is held to 1e-6
 of the sum of the products' magnitudes. Flash attention is held to its
 plain version run in float32 on the same inputs: 2e-5 of the output's
 largest magnitude for float32 (sums in another order and another exp),
-2^-8 of it for bf16, whose output is rounded once to bf16 (at most half
-an ulp, 2^-9 of the value).
+2^-8 of it for bf16, whose output is rounded once to bf16 (half an ulp,
+2^-9 to 2^-8 of the value) and whose weights go into the PV product as
+a bf16 pair (P_hi + P_lo, 16 bits) on the tensor cores.
 """
 import numpy as np
 import pytest
@@ -55,6 +57,56 @@ def test_spmm_kernel_vs_plain_on_card(cuda, n, nnz, bm, k, rng):
     assert spmm_tile.LAUNCHES == before + 1
     want = ops.spmm_blocks(*args, x, impl="ref")
     _close(got.cpu(), want.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [None, 7])
+def test_spmm_kernel_splits_heavy_rows(cuda, chunk):
+    """One block row of 3,200 blocks among light and empty rows: its
+    chunks run on separate CTAs and a second launch sums their partials
+    in chunk order, bit-identical from run to run. The entries are small
+    integers, so every partial sum is exact in float32 and any order of
+    summation gives the same bits: the kernel must equal its plain
+    version, which a block counted twice, missed or put in the wrong row
+    would break."""
+    g = np.random.default_rng(21)
+    bm, bn, k, n_cols, n_rows = 32, 32, 4, 64, 48
+    counts = g.integers(1, 40, n_rows)
+    counts[[0, 9, n_rows - 1]] = 0
+    counts[5] = 3200
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nb = int(ptr[-1])
+    blocks = g.integers(-2, 3, (nb, bm, bn)).astype(np.float32)
+    cols = g.integers(0, n_cols, nb).astype(np.int32)
+    x = _t(g.integers(-2, 3, (n_cols * bn, k)).astype(np.float32)).to(cuda)
+    args = [_t(a).to(cuda) for a in (blocks, cols, ptr)]
+    plan = spmm_tile.plan(args[2], chunk=chunk)
+    assert plan.row_ptr is args[2]
+    assert plan.splits.shape[0] >= 1 and plan.heaviest <= plan.chunk
+    if chunk is None:      # set against this card's SMs
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert plan.chunk == spmm_tile.default_chunk(nb, sms)
+    before = spmm_tile.LAUNCHES
+    got = ops.spmm_blocks(*args, x, plan=plan)
+    assert spmm_tile.LAUNCHES == before + 1
+    assert torch.equal(got, ops.spmm_blocks(*args, x, plan=plan))
+    if chunk is None:      # the wrapper's own plan of row_ptr is the same
+        assert torch.equal(got, ops.spmm_blocks(*args, x))
+    want = ops.spmm_blocks(*args, x, impl="ref")
+    _close(got.cpu(), want.cpu())
+    assert torch.equal(got, want)
+    rows = got.reshape(n_rows, bm, k)
+    assert torch.all(rows[[0, 9, n_rows - 1]] == 0)
+    # a plan of another row_ptr is refused, even one of the same block
+    # rows and blocks (the heavy row moved) or of an equal copy
+    moved = np.concatenate([[0], np.cumsum(np.roll(counts, 1))])
+    for other in (ptr[:-1], moved, ptr):
+        other = spmm_tile.plan(_t(other.astype(np.int32)).to(cuda),
+                               chunk=chunk)
+        with pytest.raises(ValueError, match="another row_ptr"):
+            ops.spmm_blocks(*args, x, plan=other)
+    with pytest.raises(ValueError, match="row_ptr covers"):
+        ops.spmm_blocks(args[0][:-1], args[1][:-1], args[2], x, plan=plan)
 
 
 @pytest.mark.gpu
@@ -154,6 +206,49 @@ def test_flash_kernel_serve_shapes_bit_identical(cuda, b, h, hkv, sq, sk, d,
     got = ops.flash_attention(q, k, v, causal=causal)
     assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
     assert _flash_err(got, q, k, v, causal) <= FLASH_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_tensor_cores_at_serve_length(cuda, causal):
+    """The bf16 path (wgmma, TMA) at yi-9b's head dim and grouping, 8
+    query heads on one KV head, over 2,048 positions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_inputs(cuda, torch.bfloat16, 1, 8, 1, 2048, 2048, 128,
+                            seed=2048)
+    before = flashattn.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flashattn.LAUNCHES == before + 1
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+    assert _flash_err(got, q, k, v, causal) <= FLASH_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_flash_bf16_refuses_layouts_tma_cannot_read(cuda):
+    """TMA needs 16-byte aligned bases and strides: the wrapper raises
+    rather than take another path."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    wide = torch.randn((1, 2, 64, 72), generator=g, device=cuda).bfloat16()
+    k = v = wide[..., :64].contiguous()
+    odd = torch.randn((1, 2, 64, 68), generator=g, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        ops.flash_attention(odd[..., :64], k, v)      # row stride 136 B
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(wide[..., 1:65], k, v)    # base 2 B past
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        ops.flash_attention(k, odd[..., :64], odd[..., :64])
+    got = ops.flash_attention(wide[..., :64], k, v)   # row stride 144 B
+    assert torch.equal(got, ops.flash_attention(wide[..., :64].contiguous(),
+                                                k, v))
+    # the model's (B, S, H, d) projections, read as (B, H, S, d) views
+    qs = torch.randn((2, 150, 8, 32), generator=g, device=cuda).bfloat16()
+    kv = torch.randn((2, 150, 2, 2, 32), generator=g,
+                     device=cuda).bfloat16()
+    kt, vt = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    got = ops.flash_attention(qs.transpose(1, 2), kt, vt)
+    assert got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, ops.flash_attention(
+        qs.transpose(1, 2).contiguous(), kt.contiguous(), vt.contiguous()))
 
 
 @pytest.mark.gpu

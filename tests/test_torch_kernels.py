@@ -149,6 +149,155 @@ def test_coo_path_vs_reference(rng):
     _close(got, want)
 
 
+# ------------------------------------------------------- spmm work plan
+
+def _rmat_image(n, nnz, bm, seed=7, min_block_nnz=1):
+    r, c, v = rmat_graph(n, nnz, seed=seed, symmetric=True)
+    return pack_tiles(n, n, r, c, v, block_shape=(bm, bm),
+                      min_block_nnz=min_block_nnz)
+
+
+def _check_plan(ptr, plan, chunk):
+    """Every property the kernel relies on, item by item."""
+    ptr = np.asarray(ptr, np.int64)
+    counts = np.diff(ptr)
+    items = plan.items.numpy().astype(np.int64)
+    row, lo, hi, slot = items.T
+    assert plan.items.dtype == plan.splits.dtype == torch.int32
+    assert plan.n_block_rows == counts.size and plan.n_blocks == ptr[-1]
+    assert plan.chunk == chunk
+    # every block exactly once, each item inside its own row
+    cover = np.zeros(int(ptr[-1]), np.int64)
+    for a, b in zip(lo, hi):
+        cover[a:b] += 1
+    assert np.all(cover == 1)
+    assert np.all((ptr[row] <= lo) & (lo <= hi) & (hi <= ptr[row + 1]))
+    assert np.all(hi - lo <= chunk)
+    assert np.all(np.diff(hi - lo) <= 0)                  # longest first
+    assert plan.heaviest == (int(hi[0] - lo[0]) if items.size else 0)
+    splits = {int(r): (int(s0), int(n)) for r, s0, n in plan.splits.numpy()}
+    used = []
+    for r in range(counts.size):
+        mine = np.flatnonzero(row == r)
+        mine = mine[np.argsort(lo[mine], kind="stable")]
+        # contiguous chunks in CSR order that span the row
+        assert lo[mine[0]] == ptr[r] and hi[mine[-1]] == ptr[r + 1]
+        assert np.array_equal(lo[mine[1:]], hi[mine[:-1]])
+        if counts[r] <= chunk:                  # unsplit, empty rows too
+            assert mine.size == 1 and slot[mine[0]] == -1
+            assert r not in splits
+        else:
+            assert mine.size == -(-counts[r] // chunk)
+            lengths = hi[mine] - lo[mine]
+            assert lengths.max() - lengths.min() <= 1
+            s0, n = splits[r]
+            assert n == mine.size
+            assert np.array_equal(slot[mine], s0 + np.arange(n))
+            used.extend(slot[mine])
+    assert sorted(used) == list(range(plan.n_partials))
+    assert len(splits) == plan.splits.shape[0]
+
+
+HAND_ROW_PTRS = {
+    "empty-image": [0],
+    "all-empty-rows": [0, 0, 0, 0],
+    "one-heavy-row": [0, 0, 3000, 3000, 3007, 3008, 3008],
+    "exact-multiples": [0, 14, 28, 35, 36],
+    "unit-rows": [0, 1, 2, 3, 4, 5],
+}
+
+
+@pytest.mark.parametrize("name", sorted(HAND_ROW_PTRS))
+@pytest.mark.parametrize("chunk", [1, 7, 512])
+def test_spmm_plan_hand_made_row_ptrs(name, chunk):
+    ptr = np.asarray(HAND_ROW_PTRS[name], np.int32)
+    plan = spmm_tile.plan(ptr, chunk=chunk)
+    _check_plan(ptr, plan, chunk)
+    if name == "one-heavy-row" and chunk == 7:
+        assert plan.splits.numpy().tolist() == [[1, 0, 429]]
+        assert plan.items[0, 0] == 1 and plan.n_partials == 429
+
+
+@pytest.mark.parametrize("chunk", [None, 3, 7, 64])
+def test_spmm_plan_rmat_packing(chunk):
+    tm = _rmat_image(4096, 40000, 64)
+    plan = spmm_tile.plan(tm.row_ptr, chunk=chunk)
+    want_chunk = chunk or spmm_tile.default_chunk(tm.nblocks)
+    _check_plan(tm.row_ptr, plan, want_chunk)
+    # from a tensor: the same plan, on the tensor's device
+    again = spmm_tile.plan(_t(tm.row_ptr), chunk=chunk)
+    assert torch.equal(again.items, plan.items)
+    assert torch.equal(again.splits, plan.splits)
+    if chunk in (3, 7):
+        assert plan.n_partials > 0 and plan.items.shape[0] > tm.n_block_rows
+
+
+def test_spmm_plan_default_chunk():
+    assert spmm_tile.default_chunk(784953) == spmm_tile.CHUNK_MAX == 512
+    assert spmm_tile.default_chunk(100) == spmm_tile.CHUNK_MIN
+    assert spmm_tile.default_chunk(40 * 8 * spmm_tile.N_SMS) == 40
+    with pytest.raises(ValueError, match="chunk"):
+        spmm_tile.plan(np.array([0, 5], np.int32), chunk=0)
+
+
+def test_spmm_plan_holds_the_row_ptr_it_describes():
+    ptr = _t(np.array([0, 3, 3, 10], np.int32))
+    plan = spmm_tile.plan(ptr, chunk=2)
+    assert plan.row_ptr is ptr
+    assert plan.describes(ptr) and plan.describes(ptr[:])
+    assert not plan.describes(ptr.clone())
+    # the same block rows and blocks, the heavy row elsewhere
+    assert not plan.describes(_t(np.array([0, 7, 7, 10], np.int32)))
+    assert not plan.describes(ptr[:-1])
+    # from numpy the plan uploads its own int32 copy, which it describes
+    from_np = spmm_tile.plan(np.array([0, 3, 3, 10], np.int64), chunk=2)
+    assert from_np.row_ptr.dtype == torch.int32
+    assert torch.equal(from_np.row_ptr, ptr)
+    assert from_np.describes(from_np.row_ptr) and not from_np.describes(ptr)
+    assert spmm_tile.default_chunk(100 * 8 * 66, n_sms=66) == 100
+
+
+def _spmm_by_plan(blocks, block_cols, plan, x):
+    """The kernel's order of work in plain PyTorch: each item sums its
+    blocks in CSR order into its row of Y or its partial slot, then each
+    split row's partials are summed in chunk order."""
+    _, bm, bn = blocks.shape
+    k = x.shape[1]
+    xb = x.reshape(-1, bn, k)
+    y = torch.full((plan.n_block_rows, bm, k), float("nan"))
+    partials = torch.full((plan.n_partials, bm, k), float("nan"))
+    for row, lo, hi, slot in plan.items.tolist():
+        acc = torch.zeros((bm, k))
+        for j in range(lo, hi):
+            acc = acc + blocks[j] @ xb[block_cols[j]]
+        if slot < 0:
+            y[row] = acc
+        else:
+            partials[slot] = acc
+    for row, slot0, n in plan.splits.tolist():
+        acc = partials[slot0]
+        for c in range(1, n):
+            acc = acc + partials[slot0 + c]
+        y[row] = acc
+    return y.reshape(-1, k)
+
+
+@pytest.mark.parametrize("chunk", [None, 2, 5])
+def test_spmm_plan_applied_in_order_matches_plain(chunk):
+    g = np.random.default_rng(11)
+    tm = _rmat_image(2048, 8000, 32, seed=3, min_block_nnz=4)
+    counts = np.diff(tm.row_ptr)
+    assert (counts == 0).any() and counts.max() > 5
+    x = _t(g.standard_normal((tm.shape[1], 4)).astype(np.float32))
+    blocks, cols, ptr = (_t(a) for a in (tm.blocks, tm.block_cols,
+                                         tm.row_ptr))
+    plan = spmm_tile.plan(tm.row_ptr, chunk=chunk)
+    got = _spmm_by_plan(blocks, cols, plan, x)
+    want = ops.spmm_blocks(blocks, cols, ptr, x, plan=plan)
+    _close(got, want)
+    _close(want, ops.spmm_blocks(blocks, cols, ptr, x, impl="ref"))
+
+
 # ------------------------------------------------------- tsgemm / gram
 
 @pytest.mark.parametrize("n,m,b", [
