@@ -8,7 +8,7 @@ Needs one CUDA card of capability (9, 0), `nvcc` and the repository's
 otherwise. Phases, each of which fails the run:
 
   1. card: name and power limit (nvidia-smi), capability (9, 0);
-  2. build: the four CUDA kernels from src/repro_torch/kernels/csrc,
+  2. build: the CUDA kernels from src/repro_torch/kernels/csrc,
      compiled in parallel into src/repro_torch/kernels/build/;
   3. graph: the n = 2^20 R-MAT image, `rmat_graph(2**20, 2**23, seed=1,
      symmetric=True)` → normalized adjacency → 64×64 blocks with at least
@@ -18,7 +18,8 @@ otherwise. Phases, each of which fails the run:
      version, one PyTorch library call and the card's bound; the SpMM
      with the operator's work plan (printed: work items, split rows,
      heaviest chunk), run-to-run bit identity, and its heaviest work item
-     timed alone;
+     timed alone; gram and tsgemm bit-identical run to run, with their
+     device kernels per call counted by the profiler (one each);
   5. end to end: `solve(op, 8, method="krylov_schur", block_size=4,
      num_blocks=8, tol=1e-5, max_iters=100)` on a CUDA TieredStore, with
      the launch counters zeroed just before and read just after; it must
@@ -26,23 +27,32 @@ otherwise. Phases, each of which fails the run:
      must have launched;
   6. small input, before 5: the same solver on a 1,200-vertex graph
      against numpy's dense eigvalsh, rtol 1e-5;
-  7. breakdown: a short profiled solve (device time by kernel and copy,
-     host spans for store.get / store.demote / operator.matmat);
-  8. flash attention, after the graph image is freed: the kernel against
+  7. breakdown: a short profiled solve (device time and launches by
+     kernel and copy, ms per launch, host spans for store.get /
+     store.demote / operator.matmat);
+  8. the bf16 image: the operator's blocks cast to bf16 on the card
+     (`GraphOperator.astype`, 6.43 GB); the bf16 SpMM against its plain
+     version, bit-identical run to run and timed as in 4; then the solve
+     of 5 over it, counters zeroed just before and read just after (every
+     SpMM launch must be a bf16 one), converged with true residuals
+     ≤ 1e-4 against the bf16 operator and eigenvalues within Weyl's bound
+     (2^-8 · max row sum of the blocks, plus the residuals) of the
+     float32 solve's; its profiled breakdown; then the cast is freed;
+  9. flash attention, after the graph image is freed: the kernel against
      its plain version (float32 arithmetic on the same bf16 inputs) at the
      yi-9b prefill shapes (B 4, S 2048, H 32, Hkv 4, d 128, causal) and at
      a ragged non-causal shape (Sq 96, Sk 160, d 64), run-to-run bit
      identity, timed beside the plain version, PyTorch's
      scaled_dot_product_attention and the card's bound, with its TFLOP/s
      and the PV design the bf16 kernel ships (P split into bf16 hi + lo);
-  9. yi-9b serving at full width and all 48 layers in bf16, weights drawn
+ 10. yi-9b serving at full width and all 48 layers in bf16, weights drawn
      on the card by `init_model` from a seed: 4 requests of 2,048 prompt
      tokens through `prefill_with_cache(..., cache_len=2080)`, then 32
      greedy `decode_step`s, with the launch counters zeroed just before
      and read just after (48 flash launches per prefill); then one
      `logits_fn` over prompt plus generated tokens, whose logits at the
      generated positions must agree with the decode logits;
- 10. serve breakdown: one profiled prefill and 4 profiled decode steps
+ 11. serve breakdown: one profiled prefill and 4 profiled decode steps
      (device time by kind, idle share, the largest host ops).
 
 Then one JSON line of kernels, the card line, and the final result line.
@@ -105,19 +115,24 @@ def log(msg: str) -> None:
 class Timer:
     """Median of CUDA-event times over REPS launches, each launched after
     a 256 MB write that evicts the 50 MB L2 cache, as the solve's inputs
-    arrive from a copy or an earlier kernel."""
+    arrive from a copy or an earlier kernel. That write leaves L2 full of
+    dirty lines, which the timed launch writes back as it reads; with
+    `clean=True` the buffer is read back before each launch, so L2 holds
+    clean lines and the launch pays for its own bytes only."""
 
     def __init__(self, torch, device):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.float32,
                                  device=device)
 
-    def ms(self, fn, reps: int = REPS) -> float:
+    def ms(self, fn, reps: int = REPS, clean: bool = False) -> float:
         torch = self.torch
         fn()                                 # warm up
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            if clean:
+                self.flush.sum()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -197,30 +212,38 @@ def make_graph(n_log2: int, nnz_log2: int):
     return tm, (r, c, v)
 
 
-def kernel_phase(torch, op, timer):
-    """Each kernel at its main-path shapes against its plain version."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import gram as gram_mod
-    from repro_torch.kernels import spmm_tile, tsgemm as tsgemm_mod
-    dev = op.device
+def kernels_per_call(torch, fn, calls: int = 4) -> float:
+    """Device kernels that one call of fn launches, counted by the
+    profiler over `calls` calls (copies and fills excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(evt.count for evt in prof.key_averages()
+            if "CUDA" in str(getattr(evt, "device_type", ""))
+            and not evt.key.startswith(("Memcpy", "Memset")))
+    return n / calls
+
+
+def spmm_phase(torch, op, timer, x):
+    """The SpMM kernel over the operator's image, float32 or bf16, at the
+    solve's shapes against its plain version (float32 arithmetic on the
+    same blocks)."""
+    from repro_torch.kernels import ops, spmm_tile
+    blocks, cols, ptr, plan = op._blocks, op._block_cols, op._row_ptr, \
+        op._plan
     n = op.n
-    gen = torch.Generator(device=dev).manual_seed(7)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
-    rows = []
-    x = randn(n, BLOCK_SIZE)
-    blocks, cols, ptr = op._blocks, op._block_cols, op._row_ptr
-
-    # --- spmm_blocksparse ---------------------------------------------------
-    plan = op._plan
+    bf16 = blocks.dtype == torch.bfloat16
+    name = "spmm_blocksparse_bf16" if bf16 else "spmm_blocksparse"
     y = ops.spmm_blocks(blocks, cols, ptr, x, plan=plan)
     if not torch.equal(y, ops.spmm_blocks(blocks, cols, ptr, x, plan=plan)):
-        fail("spmm_blocksparse is not bit-identical from run to run")
+        fail(f"{name} is not bit-identical from run to run")
     y_ref = ops.spmm_blocks(blocks, cols, ptr, x, impl="ref")
     # Σ|terms| per output; the normalized adjacency has no negative entry,
-    # so the image itself serves and no 13 GB |blocks| copy is made
+    # so the image itself serves and no |blocks| copy is made
     abs_blocks = blocks if float(blocks.min()) >= 0 else blocks.abs()
     scale = ops.spmm_blocks(abs_blocks, cols, ptr, x.abs(), impl="ref")
     err = rel_err(y, y_ref, scale)
@@ -230,10 +253,10 @@ def kernel_phase(torch, op, timer):
     plain = timer.ms(lambda: ops.spmm_blocks(blocks, cols, ptr, x,
                                              impl="ref"), reps=3)
     nb, bm, bn = blocks.shape
-    nbytes = (blocks.numel() * 4 + cols.numel() * 4 + ptr.numel() * 4
-              + x.numel() * 4 + y.numel() * 4)
+    nbytes = (blocks.numel() * blocks.element_size() + cols.numel() * 4
+              + ptr.numel() * 4 + x.numel() * 4 + y.numel() * 4)
     bms, by = bound_ms(nbytes, 2 * nb * bm * bn * BLOCK_SIZE)
-    lib_ms, lib_note = None, "torch.sparse BSR @ dense"
+    lib_ms, lib_note, bsr = None, "torch.sparse BSR @ dense", None
     try:
         with warnings.catch_warnings():   # "BSR support is in beta"
             warnings.simplefilter("ignore", UserWarning)
@@ -241,25 +264,38 @@ def kernel_phase(torch, op, timer):
                                           check_invariants=False)
         lib_ms = timer.ms(lambda: bsr @ x, reps=3)
     except (RuntimeError, NotImplementedError) as e:  # yardstick only
-        lib_note = f"BSR product unavailable: {str(e).splitlines()[0]}"
+        lib_note = (f"BSR product on these inputs unavailable: "
+                    f"{str(e).splitlines()[0][:120]}")
+        if bf16 and bsr is not None:       # bf16 X: other inputs, noted
+            xb = x.bfloat16()
+            try:
+                lib_note += (f"; with X rounded to bf16 "
+                             f"{timer.ms(lambda: bsr @ xb, reps=3):.3f} ms")
+            except (RuntimeError, NotImplementedError) as e2:
+                lib_note += (f"; with bf16 X also unavailable: "
+                             f"{str(e2).splitlines()[0][:120]}")
+    del bsr
     # the heaviest work item alone (the plan's first), writing Y directly:
     # what is left of the skew that one block row used to set
     row, lo, hi, _ = plan.items[0].tolist()
     alone = dataclasses.replace(
         plan, splits=plan.splits[:0],
         items=torch.tensor([[row, lo, hi, -1]], dtype=torch.int32,
-                           device=dev), n_partials=0)
+                           device=op.device), n_partials=0)
     heavy_ms = timer.ms(lambda: spmm_tile.spmm_blocksparse(
         blocks, cols, ptr, x, plan=alone))
     per_row = (ptr[1:] - ptr[:-1]).cpu()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    log(f"kernel spmm_blocksparse: plan chunk {plan.chunk} | "
-        f"{plan.items.shape[0]} work items for {plan.n_block_rows} block "
-        f"rows, {plan.splits.shape[0]} rows split into {plan.n_partials} "
-        f"chunks | heaviest block row {int(per_row.max())} blocks, "
-        f"heaviest work item {plan.heaviest} blocks (per-SM share "
-        f"{nb / sms:.0f})")
-    log(f"kernel spmm_blocksparse: blocks {tuple(blocks.shape)} x "
+    sms = torch.cuda.get_device_properties(op.device).multi_processor_count
+    if not bf16:
+        log(f"kernel spmm_blocksparse: plan chunk {plan.chunk} | "
+            f"{plan.items.shape[0]} work items for {plan.n_block_rows} block"
+            f" rows, {plan.splits.shape[0]} rows split into "
+            f"{plan.n_partials} chunks | heaviest block row "
+            f"{int(per_row.max())} blocks, heaviest work item "
+            f"{plan.heaviest} blocks (per-SM share {nb / sms:.0f})")
+    log(f"kernel {name}: blocks {tuple(blocks.shape)} "
+        f"{str(blocks.dtype).removeprefix('torch.')} "
+        f"({nb * bm * bn * blocks.element_size() / 1e9:.2f} GB) x "
         f"{tuple(x.shape)} | rel err {err:.3e} (tol {KERNEL_TOL:g} of "
         f"Σ|terms|), max abs err {abs_err:.3e}, bit-identical run to run | "
         f"{ms:.3f} ms, plain {plain:.3f} ms, library {lib_ms} ms "
@@ -267,43 +303,72 @@ def kernel_phase(torch, op, timer):
         f"(block row {row}, blocks {lo}..{hi}) alone {heavy_ms:.3f} ms = "
         f"{heavy_ms / ms:.2f} of the launch")
     if not err <= KERNEL_TOL:
-        fail(f"spmm_blocksparse disagrees with its plain version: {err}")
-    rows.append({"name": "spmm_blocksparse", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/spmm_tile.cu",
-                 "replaces": "src/repro/kernels/spmm_tile.py:50",
-                 "module": spmm_tile, "max_abs_err": abs_err, "ms": ms,
-                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                 "library_ms": lib_ms})
+        fail(f"{name} disagrees with its plain version: {err}")
+    count = ((lambda: spmm_tile.LAUNCHES_BF16) if bf16 else
+             (lambda: spmm_tile.LAUNCHES - spmm_tile.LAUNCHES_BF16))
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/spmm_tile.cu",
+            "replaces": "src/repro/kernels/spmm_tile.py:50",
+            "count": count, "max_abs_err": abs_err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms}
 
-    # --- gram ---------------------------------------------------------------
+
+def kernel_phase(torch, op, timer):
+    """Each kernel at its main-path shapes against its plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import gram as gram_mod
+    from repro_torch.kernels import tsgemm as tsgemm_mod
+    dev = op.device
+    n = op.n
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows = [spmm_phase(torch, op, timer, randn(n, BLOCK_SIZE))]
+
+    # --- gram: one launch per call, the last CTA sums the partials ---------
     a, b = randn(n, BLOCK_SIZE), randn(n, BLOCK_SIZE)
     g = ops.gram(a, b)
-    if not torch.equal(g, ops.gram(a, b)):
+    if not all(torch.equal(g, ops.gram(a, b)) for _ in range(2)):
         fail("gram is not bit-identical from run to run")
     err = rel_err(g, ops.gram(a, b, impl="ref"), a.abs().T @ b.abs())
     abs_err = float((g - ops.gram(a, b, impl="ref")).abs().max())
+    per_call = kernels_per_call(torch, lambda: ops.gram(a, b))
     ms = timer.ms(lambda: ops.gram(a, b))
+    clean_ms = timer.ms(lambda: ops.gram(a, b), clean=True)
+    word = torch.empty(1, device=dev)
+    floor = timer.ms(lambda: word.zero_())   # a one-word fill: the floor
     plain = timer.ms(lambda: ops.gram(a, b, impl="ref"))
     lib_ms = timer.ms(lambda: torch.matmul(a.T, b))
     m = BLOCK_SIZE
     bms, by = bound_ms((2 * n * m + m * m) * 4, 2 * n * m * m)
     log(f"kernel gram: ({n}, {m})ᵀ({n}, {m}) | rel err {err:.3e} (tol "
-        f"{KERNEL_TOL:g} of Σ|terms|), max abs err {abs_err:.3e} | "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, library torch.matmul(a.T, b) "
-        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{KERNEL_TOL:g} of Σ|terms|), max abs err {abs_err:.3e}, "
+        f"bit-identical run to run | device kernels per call {per_call:g} | "
+        f"{ms:.4f} ms ({clean_ms:.4f} with L2 clean), plain {plain:.4f} ms, "
+        f"library torch.matmul(a.T, b) {lib_ms:.4f} ms, bound {bms:.4f} ms "
+        f"({by}) | a one-word fill under the same timer {floor:.4f} ms")
     if not err <= KERNEL_TOL:
         fail(f"gram disagrees with its plain version: {err}")
+    if per_call != 1:
+        fail(f"gram launched {per_call} device kernels per call, not 1")
     rows.append({"name": "gram", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/gram.cu",
                  "replaces": "src/repro/kernels/gram.py:34",
-                 "module": gram_mod, "max_abs_err": abs_err, "ms": ms,
-                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                 "library_ms": lib_ms})
+                 "count": lambda: gram_mod.LAUNCHES, "max_abs_err": abs_err,
+                 "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                 "bound_by": by, "library_ms": lib_ms})
 
     # --- tsgemm: (4, 4) in CGS2 and compress, (4, 8) for the Ritz vectors -
     for width in (BLOCK_SIZE, NEV):
         small, c0 = randn(m, width), randn(n, width)
         c = ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=c0)
+        if not torch.equal(c, ops.tsgemm(a, small, alpha=-1.0, beta=1.0,
+                                         c0=c0)):
+            fail(f"tsgemm ({m}, {width}) is not bit-identical from run to "
+                 f"run")
         c_ref = ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=c0,
                            impl="ref")
         e = rel_err(c, c_ref, a.abs() @ small.abs() + c0.abs())
@@ -313,7 +378,11 @@ def kernel_phase(torch, op, timer):
         if width == BLOCK_SIZE:
             err, abs_err = e, float((c - c_ref).abs().max())
     small, c0 = randn(m, m), randn(n, m)
+    per_call = kernels_per_call(torch, lambda: ops.tsgemm(
+        a, small, alpha=-1.0, beta=1.0, c0=c0))
     ms = timer.ms(lambda: ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=c0))
+    clean_ms = timer.ms(lambda: ops.tsgemm(a, small, alpha=-1.0, beta=1.0,
+                                           c0=c0), clean=True)
     plain = timer.ms(lambda: ops.tsgemm(a, small, alpha=-1.0, beta=1.0,
                                         c0=c0, impl="ref"))
     lib_ms = timer.ms(lambda: torch.addmm(c0, a, small, beta=1.0,
@@ -322,25 +391,42 @@ def kernel_phase(torch, op, timer):
                        2 * n * m * m + 2 * n * m)
     log(f"kernel tsgemm: ({n}, {m})·({m}, {m}) + C0 | rel err {err:.3e} "
         f"(tol {KERNEL_TOL:g} of Σ|terms|; also checked at ({m}, {NEV})), "
-        f"max abs err {abs_err:.3e} | {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"library torch.addmm {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"max abs err {abs_err:.3e}, bit-identical run to run | device "
+        f"kernels per call {per_call:g} | {ms:.4f} ms ({clean_ms:.4f} with L2"
+        f" clean), plain {plain:.4f} ms, library torch.addmm {lib_ms:.4f} ms,"
+        f" bound {bms:.4f} ms ({by})")
+    if per_call != 1:
+        fail(f"tsgemm launched {per_call} device kernels per call, not 1")
     rows.append({"name": "tsgemm", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/tsgemm.cu",
                  "replaces": "src/repro/kernels/tsgemm.py:28",
-                 "module": tsgemm_mod, "max_abs_err": abs_err, "ms": ms,
-                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                 "library_ms": lib_ms})
+                 "count": lambda: tsgemm_mod.LAUNCHES,
+                 "max_abs_err": abs_err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
     torch.cuda.synchronize()
     return rows
 
 
-def solve_main_path(torch, op, modules):
-    """The counted run: launch counters zeroed just before, read after."""
+def zero_counters() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import flashattn, gram, spmm_tile, tsgemm
+    for mod in (spmm_tile, gram, tsgemm, flashattn):
+        mod.LAUNCHES = 0
+    spmm_tile.LAUNCHES_BF16 = 0
+
+
+def read_counters(rows) -> dict:
+    return {r["name"]: r["count"]() for r in rows}
+
+
+def solve_main_path(torch, op, rows, label: str, launched, idle):
+    """A counted run: launch counters zeroed just before, read just
+    after. Every row named in `launched` must have launched, none of
+    `idle`."""
     from repro_torch.core import TieredStore, solve, true_residuals
     store = TieredStore(device=op.device)
     op.store = store
-    for mod in modules:
-        mod.LAUNCHES = 0
+    zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = solve(op, NEV, method="krylov_schur", block_size=BLOCK_SIZE,
@@ -348,34 +434,68 @@ def solve_main_path(torch, op, modules):
                 store=store)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
-                for mod in modules}
+    launches = read_counters(rows)
     resid = true_residuals(op, res.eigenvectors, res.eigenvalues)
-    log(f"e2e: solve wall {wall:.3f} s | converged {res.converged} | "
-        f"restarts {res.n_restarts} | SpMM calls {res.n_ops} | "
-        f"kernel launches {launches} | peak device memory "
+    log(f"e2e ({label} image): solve wall {wall:.3f} s | converged "
+        f"{res.converged} | restarts {res.n_restarts} | SpMM calls "
+        f"{res.n_ops} | kernel launches {launches} | peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    log(f"e2e: eigenvalues {np.array2string(res.eigenvalues, precision=7)}")
-    log(f"e2e: cheap residual bounds {np.array2string(res.residuals)}")
-    log(f"e2e: true residuals ‖Ax−θx‖/max(1,|θ|) "
+    log(f"e2e ({label}): eigenvalues "
+        f"{np.array2string(res.eigenvalues, precision=7)}")
+    log(f"e2e ({label}): cheap residual bounds "
+        f"{np.array2string(res.residuals)}")
+    log(f"e2e ({label}): true residuals ‖Ax−θx‖/max(1,|θ|) "
         f"{np.array2string(resid)} (limit {RESID_TOL:g})")
-    log(f"e2e: IOStats {json.dumps(res.io_stats)}")
+    log(f"e2e ({label}): IOStats {json.dumps(res.io_stats)}")
     if not res.converged:
-        fail(f"the solve did not converge in {MAX_ITERS} restarts")
+        fail(f"the {label} solve did not converge in {MAX_ITERS} restarts")
     vec = res.eigenvectors
     if tuple(vec.shape) != (op.n, NEV) or not bool(torch.isfinite(vec).all()):
         fail(f"eigenvectors {tuple(vec.shape)} not finite ({op.n}, {NEV})")
     if not np.all(resid <= RESID_TOL):
         fail(f"true residuals above {RESID_TOL}: {resid}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    return launches, wall, res
+    for name in launched:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the {label} path")
+    for name in idle:
+        if launches[name] != 0:
+            fail(f"kernel {name} launched {launches[name]} times on the "
+                 f"{label} path")
+    return launches, res, resid
 
 
-def breakdown(torch, op, restarts: int = 3) -> None:
-    """Device time by kernel and copy, and host spans, over a short solve
-    (the same expansion pattern as the main run, fewer restarts)."""
+def weyl_check(torch, op, res32, resid32, res16, resid16) -> None:
+    """The bf16 solve against the float32 one. Rounding to bf16 moves each
+    block entry by at most 2^-8 of itself, so ‖ΔA‖₂ ≤ 2^-8 ‖|A_blocks|‖₂
+    ≤ 2^-8 · (largest row sum of |A_blocks|), and each bf16 eigenvalue
+    lies within that plus its residual of an eigenvalue of the float32
+    image (Weyl). The top of this spectrum is ±1, many times over (one
+    per connected component), so the nearest of the float32 solve's
+    eigenvalues (within its own residuals) stands for it."""
+    from repro_torch.kernels import ops
+    blocks = op._blocks if float(op._blocks.min()) >= 0 else op._blocks.abs()
+    ones = torch.ones((op.n, 1), device=op.device)
+    row_sum = float(ops.spmm_blocks(blocks, op._block_cols, op._row_ptr,
+                                    ones, plan=op._plan).max())
+    del blocks
+    delta = 2.0 ** -8 * row_sum
+    th32, th16 = res32.eigenvalues, res16.eigenvalues
+    r32 = float(np.max(resid32 * np.maximum(1.0, np.abs(th32))))
+    r16 = resid16 * np.maximum(1.0, np.abs(th16))
+    dist = np.abs(th16[:, None] - th32[None, :]).min(axis=1)
+    limit = delta + r16 + r32
+    log(f"bf16 vs float32 image: eigenvalue shifts {np.array2string(dist)}"
+        f" | Weyl limit {delta:.4e} (2^-8 x largest block row sum "
+        f"{row_sum:.4f}) + residuals | restarts {res16.n_restarts} vs "
+        f"{res32.n_restarts}, SpMM calls {res16.n_ops} vs {res32.n_ops}")
+    if not np.all(dist <= limit):
+        fail(f"bf16 eigenvalues beyond Weyl's bound: {dist} > {limit}")
+
+
+def breakdown(torch, op, label: str, restarts: int = 3) -> None:
+    """Device time and launches by kernel and copy, and host spans, over
+    a short solve (the same expansion pattern as the main run, fewer
+    restarts)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import TieredStore, solve
     from repro_torch.obs import Tracer, tracing
@@ -393,6 +513,7 @@ def breakdown(torch, op, restarts: int = 3) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     cats = {"spmm_blocksparse": 0.0, "gram": 0.0, "tsgemm": 0.0,
             "Memcpy HtoD": 0.0, "Memcpy DtoH": 0.0, "other": 0.0}
+    counts = dict.fromkeys(cats, 0)
     others = []
     for evt in prof.key_averages():
         # device-side records only: an aten op's own entry repeats the
@@ -403,6 +524,7 @@ def breakdown(torch, op, restarts: int = 3) -> None:
         key = next((k for k in cats if k != "other" and k in evt.key),
                    "other")
         cats[key] += ms
+        counts[key] += evt.count
         if key == "other":
             others.append((ms, evt.count, evt.key[:60]))
     busy = sum(cats.values())
@@ -410,19 +532,27 @@ def breakdown(torch, op, restarts: int = 3) -> None:
     for rec in tracer.records():
         if rec["type"] == "span":
             host[rec["name"]] = host.get(rec["name"], 0.0) + rec["dur"] / 1e3
-    log(f"breakdown ({restarts} restarts, profiled): wall {wall_ms:.1f} ms "
-        f"| device busy {busy:.1f} ms, idle share "
+    per_launch = {k: round(cats[k] / counts[k], 5)
+                  for k in ("spmm_blocksparse", "gram", "tsgemm")
+                  if counts[k]}
+    log(f"breakdown ({label} image, {restarts} restarts, profiled): wall "
+        f"{wall_ms:.1f} ms | device busy {busy:.1f} ms, idle share "
         f"{1 - busy / wall_ms:.3f} | device ms by kind "
         f"{json.dumps({k: round(v, 3) for k, v in cats.items()})}")
+    log(f"breakdown ({label}): device launches by kind {json.dumps(counts)}"
+        f" | in-solve ms per launch {json.dumps(per_launch)} (the combine "
+        f"kernel of split SpMM rows counts as a spmm_blocksparse launch)")
     if cats["Memcpy HtoD"] > 0:
-        log(f"breakdown: host tier → card {store.stats.pass_bytes_read} "
-            f"subspace bytes in {cats['Memcpy HtoD']:.3f} ms of H2D copies "
-            f"= {store.stats.pass_bytes_read / cats['Memcpy HtoD'] / 1e6:.1f}"
+        log(f"breakdown ({label}): host tier → card "
+            f"{store.stats.pass_bytes_read} subspace bytes in "
+            f"{cats['Memcpy HtoD']:.3f} ms of H2D copies = "
+            f"{store.stats.pass_bytes_read / cats['Memcpy HtoD'] / 1e6:.1f}"
             f" GB/s")
-    log("breakdown: largest other device kernels (ms, count, name): "
-        + "; ".join(f"{ms:.3f}, {cnt}, {name}"
-                    for ms, cnt, name in sorted(others, reverse=True)[:6]))
-    log(f"breakdown host spans ms: "
+    log(f"breakdown ({label}): largest other device kernels (ms, count, "
+        f"name): " + "; ".join(f"{ms:.3f}, {cnt}, {name}"
+                               for ms, cnt, name in sorted(others,
+                                                           reverse=True)[:6]))
+    log(f"breakdown ({label}) host spans ms: "
         f"{json.dumps({k: round(v, 3) for k, v in sorted(host.items())})}")
     if busy <= 0:
         log("breakdown: the profiler reported no device time (not measured)")
@@ -484,15 +614,16 @@ def flash_phase(torch, timer, dev):
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flashattn.cu",
             "replaces": "src/repro/kernels/flashattn.py:28",
-            "module": flashattn, "max_abs_err": abs_err, "ms": ms,
+            "count": lambda: flashattn.LAUNCHES, "max_abs_err": abs_err,
+            "ms": ms,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms}
 
 
-def serve(torch, dev, modules, card_line: str):
+def serve(torch, dev, rows, card_line: str):
     """yi-9b at full width and depth: prefill, greedy decode, and the
     full forward over the same tokens as the check. Returns the launch
-    counts of the serving run (prefill and decode)."""
+    counts of the serving run (prefill and decode) by row name."""
     from repro_torch import configs
     from repro_torch.kernels import flashattn
     from repro_torch.models import transformer as tf
@@ -524,8 +655,7 @@ def serve(torch, dev, modules, card_line: str):
     del wc
     torch.cuda.synchronize()
 
-    for mod in modules:
-        mod.LAUNCHES = 0
+    zero_counters()
     t0 = time.perf_counter()
     logits, cache = tf.prefill_with_cache(params, cfg, prompt,
                                           cache_len=cache_len)
@@ -544,8 +674,7 @@ def serve(torch, dev, modules, card_line: str):
         tok = out.argmax(-1).int()
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
-    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
-                for mod in modules}
+    launches = read_counters(rows)
     peak = torch.cuda.max_memory_allocated()
     log(f"serve: prefill {SERVE_BATCH} x {SERVE_PROMPT} tokens in "
         f"{t_prefill:.3f} s = {SERVE_BATCH * SERVE_PROMPT / t_prefill:.0f} "
@@ -554,11 +683,11 @@ def serve(torch, dev, modules, card_line: str):
         f"{SERVE_BATCH * SERVE_DECODE / t_decode:.1f} tokens/s | peak "
         f"device memory {peak / 1e9:.2f} GB | kernel launches {launches} | "
         f"{card_line}")
-    if after_prefill != cfg.n_layers or launches["flashattn"] != \
+    if after_prefill != cfg.n_layers or launches["flash_attention"] != \
             cfg.n_layers:
         fail(f"flash_attention launched {after_prefill} times in the "
-             f"prefill and {launches['flashattn']} in prefill and decode, "
-             f"not {cfg.n_layers}")
+             f"prefill and {launches['flash_attention']} in prefill and "
+             f"decode, not {cfg.n_layers}")
 
     seq = torch.cat([prompt] + generated, dim=1)
     before = flashattn.LAUNCHES
@@ -706,22 +835,39 @@ def main() -> None:
     log(f"upload: image to the card in {time.perf_counter() - t0:.2f} s")
 
     timer = Timer(torch, dev)
-    rows = kernel_phase(torch, op, timer)
-    modules = [r.pop("module") for r in rows]
+    rows = kernel_phase(torch, op, timer)   # spmm_blocksparse, gram, tsgemm
+    solver_rows = [r["name"] for r in rows]
 
     small_reference_check(torch, dev)   # also warms cuBLAS / cuSOLVER
-    launches, _, _ = solve_main_path(torch, op, modules)
-    for r, mod in zip(rows, modules):
-        r["launches"] = launches[mod.__name__.rsplit(".", 1)[1]]
-    breakdown(torch, op)
-    del op, tm                           # free the 12.86 GB image
+    launches, res32, resid32 = solve_main_path(
+        torch, op, rows, "float32", launched=solver_rows, idle=())
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    breakdown(torch, op, "float32")
+
+    # the bf16 image: the uploaded blocks cast on the card, then freed
+    t0 = time.perf_counter()
+    op16 = op.astype(torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"bf16 image: blocks cast on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows.insert(1, spmm_phase(torch, op16, timer, torch.randn(
+        (op.n, BLOCK_SIZE), generator=gen, device=dev)))
+    launches, res16, resid16 = solve_main_path(
+        torch, op16, rows, "bf16", launched=["spmm_blocksparse_bf16",
+                                             "gram", "tsgemm"],
+        idle=["spmm_blocksparse"])
+    rows[1]["launches"] = launches["spmm_blocksparse_bf16"]
+    weyl_check(torch, op, res32, resid32, res16, resid16)
+    breakdown(torch, op16, "bf16")
+    del op16, op, tm                     # free the 12.86 + 6.43 GB images
     gc.collect()
     torch.cuda.empty_cache()
 
     rows.append(flash_phase(torch, timer, dev))
-    modules.append(rows[-1].pop("module"))
-    launches = serve(torch, dev, modules, card_line)
-    rows[-1]["launches"] = launches["flashattn"]
+    launches = serve(torch, dev, rows, card_line)
+    rows[-1]["launches"] = launches["flash_attention"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

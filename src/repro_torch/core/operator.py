@@ -10,6 +10,7 @@ dispatch on the declared set instead of sniffing attributes.
 """
 from __future__ import annotations
 
+import copy
 from typing import Protocol
 
 import torch
@@ -62,6 +63,11 @@ class GraphOperator:
     `index_add_` uses atomics on CUDA, so its sum order, and the last
     bits of Y, change from run to run).
 
+    The blocks keep the image's type, float32 or bf16 (numpy's `bfloat16`
+    extension type, uploaded as its raw 16-bit words), as in the
+    reference; matmat takes and returns float32 either way. `astype`
+    makes the bf16 operator of an uploaded float32 image on its device.
+
     `device=None` takes the store's device, or the CUDA card when there
     is no store (raising when there is none).
     """
@@ -81,7 +87,7 @@ class GraphOperator:
         self.impl = impl
         self._image_bytes = tm.nbytes_image()
         dev = self.device
-        self._blocks = torch.from_numpy(tm.blocks).to(dev)
+        self._blocks = kops.from_numpy(tm.blocks).to(dev)
         self._block_cols = torch.from_numpy(tm.block_cols).to(dev)
         self._row_ptr = torch.from_numpy(tm.row_ptr).to(dev)
         # the SpMM kernel's work plan: heavy block rows split over CTAs
@@ -89,6 +95,19 @@ class GraphOperator:
         self._coo = (torch.from_numpy(tm.coo_rows).to(dev),
                      torch.from_numpy(tm.coo_cols).to(dev),
                      torch.from_numpy(tm.coo_vals).to(dev))
+
+    def astype(self, dtype: torch.dtype) -> "GraphOperator":
+        """This operator over its blocks cast to `dtype` (round to nearest
+        even, as numpy's bf16 `astype`) on its device: the operator that
+        `GraphOperator` builds from the cast image, sharing this one's
+        block columns, row_ptr, plan, COO side path and store, with no
+        copy through the host. Its image bytes count the cast blocks."""
+        op = copy.copy(self)
+        op._blocks = self._blocks.to(dtype)
+        op._image_bytes = self._image_bytes + (
+            op._blocks.numel() * op._blocks.element_size()
+            - self._blocks.numel() * self._blocks.element_size())
+        return op
 
     def matmat(self, x: torch.Tensor) -> torch.Tensor:
         with trace.span("operator.matmat", op="GraphOperator",

@@ -33,7 +33,10 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "repro_spmm_blocksparse_f32": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
                                    _I, _I, _I, _P],
-    "repro_gram_f32": [_P, _P, _P, _P, _LL, _I, _I, _I, _LL, _F, _I, _P],
+    "repro_spmm_blocksparse_bf16": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
+                                    _I, _I, _I, _P],
+    "repro_gram_f32": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _F, _I,
+                       _P],
     "repro_tsgemm_f32": [_P, _P, _P, _P, _LL, _I, _I, _F, _F, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _F, _I, _P],

@@ -4,18 +4,30 @@ from __future__ import annotations
 
 import torch
 
+F32 = (torch.float32,)
+F32_BF16 = (torch.float32, torch.bfloat16)
 
-def require_cuda_f32(name: str, **tensors: torch.Tensor) -> torch.device:
-    """All tensors float32, contiguous and on one CUDA device; returns it.
-    bf16 matrix images are still to port (ROADMAP, TPU kernels queue)."""
+
+def _names(dtypes) -> str:
+    return " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+
+
+def require_dtype(name: str, dtypes, **tensors: torch.Tensor) -> None:
+    """Every tensor of one of `dtypes` (TypeError otherwise). Checked
+    before the device, so a refusal reads the same on any device."""
+    for arg, t in tensors.items():
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
+                            f"{_names(dtypes)}")
+
+
+def require_cuda(name: str, **tensors: torch.Tensor) -> torch.device:
+    """All tensors contiguous and on one CUDA device; returns it."""
     dev = None
     for arg, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}, the kernel "
                              f"runs on CUDA tensors only")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} is {t.dtype}; only float32 is "
-                            f"ported (bf16 is listed in ROADMAP.md)")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if dev is None:
@@ -23,6 +35,12 @@ def require_cuda_f32(name: str, **tensors: torch.Tensor) -> torch.device:
         elif t.device != dev:
             raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
     return dev
+
+
+def require_cuda_f32(name: str, **tensors: torch.Tensor) -> torch.device:
+    """All tensors float32, contiguous and on one CUDA device; returns it."""
+    require_dtype(name, F32, **tensors)
+    return require_cuda(name, **tensors)
 
 
 def require_int32(name: str, device: torch.device,
@@ -43,7 +61,7 @@ def require_cuda_float(name: str, **tensors: torch.Tensor) -> torch.device:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}, the kernel "
                              f"runs on CUDA tensors only")
-        if t.dtype not in (torch.float32, torch.bfloat16):
+        if t.dtype not in F32_BF16:
             raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
                             f"float32 or bfloat16")
         if t.stride(-1) != 1:

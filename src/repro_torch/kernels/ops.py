@@ -39,6 +39,17 @@ def _use_kernel(impl: Impl, t: torch.Tensor) -> bool:
 # SpMM
 # ---------------------------------------------------------------------------
 
+def from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A numpy array (a TiledMatrix's blocks) as a CPU tensor of the same
+    bytes: bf16 (numpy's `bfloat16` extension type, recognised by name,
+    with no import of the package that defines it) through its raw 16-bit
+    words, any other type as `torch.from_numpy` takes it."""
+    if a.dtype.name == "bfloat16":
+        words = np.ascontiguousarray(a).view(np.uint16)
+        return torch.from_numpy(words).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def block_rows_from_ptr(row_ptr: np.ndarray) -> np.ndarray:
     """Flatten the CSR row_ptr into per-block block-row ids."""
     return np.repeat(np.arange(row_ptr.shape[0] - 1, dtype=np.int32),
@@ -54,11 +65,12 @@ def spmm_blocks(blocks: torch.Tensor, block_cols: torch.Tensor,
                 row_ptr: torch.Tensor, x: torch.Tensor, *,
                 impl: Impl = "auto",
                 plan: _spmm_kernel.Plan | None = None) -> torch.Tensor:
-    """Block-sparse part of SpMM over the CSR `row_ptr`. Rows of empty
-    block rows come out zero on both paths. `plan` is the image's work
-    plan for the kernel (`spmm_tile.plan`, built once per image); the
-    kernel builds one from row_ptr when none is given, and the plain
-    version ignores it."""
+    """Block-sparse part of SpMM over the CSR `row_ptr`: blocks float32 or
+    bf16, x float32 or bf16, Y float32 with float32 products and sums.
+    Rows of empty block rows come out zero on both paths. `plan` is the
+    image's work plan for the kernel (`spmm_tile.plan`, built once per
+    image); the kernel builds one from row_ptr when none is given, and
+    the plain version ignores it."""
     if _use_kernel(impl, x):
         return _spmm_kernel.spmm_blocksparse(blocks, block_cols, row_ptr, x,
                                              plan=plan)
@@ -75,7 +87,7 @@ def spmm(tm: TiledMatrix, x: torch.Tensor, *,
     (copies the image to x's device on every call — GraphOperator keeps
     it resident instead)."""
     dev = x.device
-    y = spmm_blocks(torch.from_numpy(tm.blocks).to(dev),
+    y = spmm_blocks(from_numpy(tm.blocks).to(dev),
                     torch.from_numpy(tm.block_cols).to(dev),
                     torch.from_numpy(tm.row_ptr).to(dev), x, impl=impl)
     if tm.coo_vals.size:

@@ -9,6 +9,9 @@ one CTA per work item, longest first; split rows get their chunks'
 partials summed in chunk order by a second launch. Every output row is
 written, zeros for empty block rows, and the result is bit-identical from
 run to run. Its plain version is `spmm_ref.spmm_ref`.
+
+Blocks may be float32 or bf16 (a bf16 image halves the bytes the kernel
+reads); X and Y are float32, and every product and sum is float32.
 """
 from __future__ import annotations
 
@@ -18,9 +21,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import require_cuda_f32, require_int32
+from repro_torch.kernels._checks import (F32_BF16, require_cuda,
+                                        require_dtype, require_int32)
 
-LAUNCHES = 0   # spmm_blocksparse calls that launched (chip_smoke reads it)
+LAUNCHES = 0        # spmm_blocksparse calls that launched (chip_smoke reads it)
+LAUNCHES_BF16 = 0   # those of them over bf16 blocks
 
 N_SMS = 132   # an H100 SXM's SMs: the default chunk of a plan on the CPU
 CHUNK_MIN, CHUNK_MAX = 16, 512
@@ -132,22 +137,23 @@ def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
                      plan: Plan | None = None) -> torch.Tensor:
     """Y = A @ X for a block-sparse A.
 
-    blocks:     (nb, bm, bn) float32
+    blocks:     (nb, bm, bn) float32 or bfloat16 (then bn % 8 == 0)
     block_cols: (nb,) int32
     row_ptr:    (n_block_rows + 1,) int32
-    x:          (n_block_cols*bn, k) float32
+    x:          (n_block_cols*bn, k) float32, or bfloat16, which is
+                widened to float32 once here (exactly)
     plan:       the work plan of this row_ptr tensor (`plan(row_ptr)`),
                 refused for any other; without one the wrapper builds it
                 from row_ptr (a copy to the host)
     returns     (n_block_rows*bm, k) float32
 
-    One call is one count in LAUNCHES, though a plan with split rows
+    Types and shapes are checked before the device, so a refusal reads
+    the same on any device. One call is one count in LAUNCHES (and in
+    LAUNCHES_BF16 for bf16 blocks), though a plan with split rows
     launches a second, combining kernel.
     """
-    global LAUNCHES
-    dev = require_cuda_f32("spmm_blocksparse", blocks=blocks, x=x)
-    require_int32("spmm_blocksparse", dev, block_cols=block_cols,
-                  row_ptr=row_ptr)
+    global LAUNCHES, LAUNCHES_BF16
+    require_dtype("spmm_blocksparse", F32_BF16, blocks=blocks, x=x)
     if blocks.dim() != 3 or x.dim() != 2 or row_ptr.dim() != 1:
         raise ValueError("spmm_blocksparse: blocks (nb, bm, bn), x (n, k), "
                          "row_ptr (n_block_rows + 1,)")
@@ -159,13 +165,18 @@ def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
     if x.shape[0] % bn:
         raise ValueError(f"spmm_blocksparse: x has {x.shape[0]} rows, not a "
                          f"multiple of bn={bn}")
-    if (bn % 4 or bm * bn > 4096 or bm * k > 2048 or bn * k > 1024
+    per_load = 16 // blocks.element_size()     # values in a 16-byte load
+    if (bn % per_load or bm * bn > 4096 or bm * k > 2048 or bn * k > 1024
             or k == 0):
-        raise ValueError(f"spmm_blocksparse: unsupported block ({bm}, {bn}) "
-                         f"with k={k} (needs bn % 4 == 0, bm*bn <= 4096, "
-                         f"bm*k <= 2048, bn*k <= 1024)")
+        raise ValueError(f"spmm_blocksparse: unsupported {blocks.dtype} block "
+                         f"({bm}, {bn}) with k={k} (needs bn % {per_load} == "
+                         f"0, bm*bn <= 4096, bm*k <= 2048, bn*k <= 1024)")
+    dev = require_cuda("spmm_blocksparse", blocks=blocks, x=x)
+    require_int32("spmm_blocksparse", dev, block_cols=block_cols,
+                  row_ptr=row_ptr)
     if blocks.data_ptr() % 16:
         raise ValueError("spmm_blocksparse: blocks must be 16-byte aligned")
+    x = x.float()
     n_block_rows = row_ptr.shape[0] - 1
     if plan is None:
         plan = _plan(row_ptr)
@@ -186,11 +197,15 @@ def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
     partials = torch.empty((plan.n_partials, bm * k), dtype=torch.float32,
                            device=dev)
     device, stream = _build.device_and_stream(x)
-    err = _build.lib().repro_spmm_blocksparse_f32(
+    bf16 = blocks.dtype == torch.bfloat16
+    launch = (_build.lib().repro_spmm_blocksparse_bf16 if bf16
+              else _build.lib().repro_spmm_blocksparse_f32)
+    err = launch(
         blocks.data_ptr(), block_cols.data_ptr(), plan.items.data_ptr(),
         plan.items.shape[0], plan.splits.data_ptr(), plan.splits.shape[0],
         x.data_ptr(), y.data_ptr(), partials.data_ptr(), bm, bn, k, device,
         stream)
     _build.check(err, "spmm_blocksparse")
     LAUNCHES += 1
+    LAUNCHES_BF16 += bf16
     return y

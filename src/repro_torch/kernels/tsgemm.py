@@ -1,9 +1,10 @@
 """Tall-skinny GEMM  C = alpha*A@B + beta*C0  on the card: wrapper over
 `csrc/tsgemm.cu` (replaces the Pallas `repro.kernels.tsgemm`).
 
-B stays in shared memory; each thread writes whole output elements.
-`c0=None` means no C0 term (beta is then ignored). Its plain version is
-`tsgemm_ref.tsgemm_ref`.
+One kernel launch per call, one thread per row of C; B is copied to
+shared memory and read into registers, and at the solver's widths, (4, 4)
+and (4, 8), rows of A, C0 and C move as float4s. `c0=None` means no C0
+term (beta is then ignored). Its plain version is `tsgemm_ref.tsgemm_ref`.
 """
 from __future__ import annotations
 

@@ -8,6 +8,7 @@ an absolute floor of 1e-5 of the output's largest magnitude: each entry
 is a sum of up to n f32 products taken in another order, and CGS2 and
 CholQR² carry that rounding through one Cholesky factor.
 """
+import dataclasses
 import json
 import os
 
@@ -23,6 +24,8 @@ from repro.core import bcgs2 as ref_bcgs2
 from repro.core import cholqr as ref_cholqr
 from repro.core.residuals import sort_ritz as ref_sort_ritz
 from repro.graphs import pack_tiles as ref_pack_tiles
+from repro.graphs import rmat_graph as ref_rmat_graph
+from repro.graphs.laplacian import normalized_adjacency as ref_normalized
 from repro.graphs.synth import rmat_spectral as ref_rmat_spectral
 from repro_torch.convert import store_from_arrays, tiled_from_arrays
 from repro_torch.core import (DEVICE, HOST, DenseOperator, GraphOperator,
@@ -262,7 +265,6 @@ def test_graph_operator_matches_reference():
     r, c, v = ref_rmat_spectral(n, 7000, seed=12)
     ref_tm = ref_pack_tiles(n, n, r, c, v, block_shape=(64, 64),
                             min_block_nnz=4)
-    import dataclasses
     tm = tiled_from_arrays(dataclasses.asdict(ref_tm))
     ref_store, store = RefTieredStore(), TieredStore(device="cpu")
     ref_op = RefGraphOperator(ref_tm, store=ref_store, impl="ref")
@@ -277,6 +279,69 @@ def test_graph_operator_matches_reference():
     assert store.stats.host_bytes_read == 2 * ref_tm.nbytes_image()
     with pytest.raises(NotImplementedError, match="item 3"):
         GraphOperator(tm, store=store, stream_image=True)
+
+
+def _dense_abs(tm) -> np.ndarray:
+    """|A| of an image in float64 (bf16 blocks widened exactly)."""
+    bm, bn = tm.block_shape
+    out = np.zeros(tm.shape, np.float64)
+    blocks = np.abs(tm.blocks.astype(np.float64))
+    for i in range(tm.n_block_rows):
+        for j in range(tm.row_ptr[i], tm.row_ptr[i + 1]):
+            c = tm.block_cols[j] * bn
+            out[i * bm:(i + 1) * bm, c:c + bn] += blocks[j]
+    np.add.at(out, (tm.coo_rows, tm.coo_cols), np.abs(tm.coo_vals))
+    return out
+
+
+def test_graph_operator_bf16_image_matches_reference():
+    """A bf16 image (numpy's ml_dtypes.bfloat16 blocks, as the reference
+    takes them) of a packed normalized-adjacency R-MAT graph: the port
+    uploads the raw 16-bit words, and matmat stays float32 in and out.
+    Each product of a bf16 entry and a float32 x is exact in float32, so
+    the two packages differ only in the order of the sums: within 1e-6 of
+    Σ|terms| per output."""
+    import ml_dtypes
+    n = 1000
+    r, c, v = ref_rmat_graph(n, 8000, seed=31, symmetric=True)
+    r, c, v = ref_normalized(n, r, c, v)
+    ref_f32 = ref_pack_tiles(n, n, r, c, v, block_shape=(64, 64),
+                             min_block_nnz=4)
+    ref_tm = dataclasses.replace(
+        ref_f32, blocks=ref_f32.blocks.astype(ml_dtypes.bfloat16))
+    f32_tm = tiled_from_arrays(dataclasses.asdict(ref_f32))
+    tm = dataclasses.replace(f32_tm, blocks=ref_tm.blocks)
+    assert not np.array_equal(ref_tm.blocks.astype(np.float32),
+                              ref_f32.blocks)     # the cast rounds
+    assert tm.blocks.dtype.name == "bfloat16" and tm.nblocks > 10
+    assert tm.coo_vals.size > 0
+    ref_store, store = RefTieredStore(), TieredStore(device="cpu")
+    ref_op = RefGraphOperator(ref_tm, store=ref_store, impl="ref")
+    op = GraphOperator(tm, store=store)
+    assert op._blocks.dtype == torch.bfloat16
+    assert np.array_equal(op._blocks.view(torch.int16).numpy(),
+                          ref_tm.blocks.view(np.int16))
+    x = np.random.default_rng(32).standard_normal((op.n, 4)).astype(
+        np.float32)
+    scale = _dense_abs(ref_tm) @ np.abs(x).astype(np.float64)
+    for _ in range(2):
+        got = op.matmat(torch.from_numpy(x))
+        want = np.asarray(ref_op.matmat(jnp.asarray(x)))
+        assert got.dtype == torch.float32 and want.dtype == np.float32
+        diff = np.abs(got.numpy().astype(np.float64) - want)
+        assert np.all(diff <= 1e-6 * scale), float(np.max(diff))
+    assert store.stats.as_dict() == ref_store.stats.as_dict()
+    assert store.stats.host_bytes_read == 2 * ref_tm.nbytes_image()
+    assert ref_tm.nbytes_image() < f32_tm.nbytes_image()
+    # the float32 operator cast on its device (round to nearest even, as
+    # ml_dtypes casts) is the bf16 image's operator
+    cast = GraphOperator(f32_tm, store=TieredStore(device="cpu")).astype(
+        torch.bfloat16)
+    assert torch.equal(cast._blocks.view(torch.int16),
+                       op._blocks.view(torch.int16))
+    assert cast._image_bytes == ref_tm.nbytes_image()
+    assert torch.equal(cast.matmat(torch.from_numpy(x)),
+                       op.matmat(torch.from_numpy(x)))
 
 
 def test_dense_operator_and_sort_ritz():

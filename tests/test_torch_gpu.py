@@ -5,8 +5,9 @@ a machine with one (no JAX needed) run
     PYTHONPATH=src python -m pytest -q tests/test_torch_gpu.py
 
 Tolerance: rtol 1e-6 of the output's largest magnitude for SpMM (split
-rows sum their chunks in another order than the plain version) and
-TSGEMM; a Gram entry sums n products, so its difference is held to 1e-6
+rows sum their chunks in another order than the plain version; bf16
+blocks are widened exactly, so the same holds for them) and TSGEMM; a
+Gram entry sums n products, so its difference is held to 1e-6
 of the sum of the products' magnitudes. Flash attention is held to its
 plain version run in float32 on the same inputs: 2e-5 of the output's
 largest magnitude for float32 (sums in another order and another exp),
@@ -19,7 +20,7 @@ import pytest
 import torch
 
 from repro_torch.graphs import pack_tiles, rmat_graph
-from repro_torch.kernels import flashattn, ops, spmm_tile
+from repro_torch.kernels import flashattn, gram, ops, spmm_tile, tsgemm
 
 RTOL = 1e-6
 
@@ -126,6 +127,165 @@ def test_gram_tsgemm_kernels_vs_plain_on_card(cuda, n, m, b, rng):
                                impl="ref").cpu())
     with pytest.raises(TypeError, match="bf16|float32"):
         ops.gram(a.bfloat16(), bb.bfloat16())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,nnz,bm,k", [
+    (256, 2000, 16, 4), (512, 4000, 32, 8), (1024, 8000, 64, 1),
+    (4096, 40000, 64, 4)])
+def test_spmm_bf16_kernel_vs_plain_on_card(cuda, n, nnz, bm, k):
+    """bf16 blocks (16-byte loads of 8 values, widened to float32 in
+    shared memory) against the plain version on the same bf16 blocks;
+    Y float32, bit-identical run to run. A bf16 X is widened once by the
+    wrapper, so it gives the bits of its float32 copy."""
+    g = np.random.default_rng(61)
+    r, c, v = rmat_graph(n, nnz, seed=n, symmetric=True)
+    tm = pack_tiles(n, n, r, c, v, block_shape=(bm, bm), min_block_nnz=1)
+    x = _t(g.standard_normal((tm.shape[1], k)).astype(np.float32)).to(cuda)
+    blocks = _t(tm.blocks).to(cuda).bfloat16()
+    args = [blocks] + [_t(a).to(cuda) for a in (tm.block_cols, tm.row_ptr)]
+    before = spmm_tile.LAUNCHES, spmm_tile.LAUNCHES_BF16
+    got = ops.spmm_blocks(*args, x)
+    assert (spmm_tile.LAUNCHES, spmm_tile.LAUNCHES_BF16) == (before[0] + 1,
+                                                             before[1] + 1)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ops.spmm_blocks(*args, x))
+    _close(got.cpu(), ops.spmm_blocks(*args, x, impl="ref").cpu())
+    xb = x.bfloat16()
+    assert torch.equal(ops.spmm_blocks(*args, xb),
+                       ops.spmm_blocks(*args, xb.float()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [None, 7])
+def test_spmm_bf16_kernel_splits_heavy_rows(cuda, chunk):
+    """The 3,200-block row of `test_spmm_kernel_splits_heavy_rows` with
+    bf16 blocks of small integers (exact in bf16, and every sum of their
+    products exact in float32): the kernel must equal its plain version,
+    and the float32 image of the same values, bit for bit."""
+    g = np.random.default_rng(21)
+    bm, bn, k, n_cols, n_rows = 32, 32, 4, 64, 48
+    counts = g.integers(1, 40, n_rows)
+    counts[[0, 9, n_rows - 1]] = 0
+    counts[5] = 3200
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nb = int(ptr[-1])
+    blocks = _t(g.integers(-2, 3, (nb, bm, bn)).astype(np.float32)).to(cuda)
+    cols = _t(g.integers(0, n_cols, nb).astype(np.int32)).to(cuda)
+    x = _t(g.integers(-2, 3, (n_cols * bn, k)).astype(np.float32)).to(cuda)
+    ptr = _t(ptr).to(cuda)
+    plan = spmm_tile.plan(ptr, chunk=chunk)
+    assert plan.splits.shape[0] >= 1
+    b16 = blocks.bfloat16()
+    before = spmm_tile.LAUNCHES
+    got = ops.spmm_blocks(b16, cols, ptr, x, plan=plan)
+    assert spmm_tile.LAUNCHES == before + 1
+    assert torch.equal(got, ops.spmm_blocks(b16, cols, ptr, x, plan=plan))
+    assert torch.equal(got, ops.spmm_blocks(b16, cols, ptr, x, impl="ref"))
+    assert torch.equal(got, ops.spmm_blocks(blocks, cols, ptr, x, plan=plan))
+    assert torch.all(got.reshape(n_rows, bm, k)[[0, 9, n_rows - 1]] == 0)
+    with pytest.raises(ValueError, match="bn % 8 == 0"):
+        ops.spmm_blocks(b16[:, :, :4].contiguous(), cols, ptr,
+                        x[:n_cols * 4])
+
+
+def _gram_case(cuda, n, m, b, seed):
+    g = np.random.default_rng(seed)
+    a = _t(g.standard_normal((n, m)).astype(np.float32)).to(cuda)
+    bb = _t(g.standard_normal((n, b)).astype(np.float32)).to(cuda)
+    return a, bb
+
+
+def _gram_ok(got, a, bb, alpha):
+    want = ops.gram(a, bb, alpha=alpha, impl="ref").cpu().double()
+    absdot = abs(alpha) * a.abs().T.double() @ bb.abs().double()
+    assert torch.all((got.cpu().double() - want).abs() <= RTOL * absdot.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,b", [
+    (2 ** 20, 4, 4), (4097, 3, 5), (1, 4, 4), (1, 3, 5), (700, 4, 4),
+    (100, 4, 4), (3 * 2 ** 21 + 7, 4, 4), (2 ** 20 + 1, 24, 8)])
+def test_gram_kernel_one_launch_bit_identical(cuda, n, m, b):
+    """One launch per call (the last CTA to finish sums the partials),
+    within tolerance of the plain version and bit-identical over 3 calls,
+    at the solver's (4, 4) and at widths the generic kernel takes; n = 1,
+    n below one CTA's rows and n past 2^22."""
+    a, bb = _gram_case(cuda, n, m, b, seed=n % 1000 + m)
+    outs = []
+    for i in range(3):
+        before = gram.LAUNCHES
+        outs.append(ops.gram(a, bb, alpha=-0.5))
+        assert gram.LAUNCHES == before + 1
+    assert outs[0].shape == (m, b) and outs[0].dtype == torch.float32
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    _gram_ok(outs[0], a, bb, -0.5)
+    if m == b == 4 and n > 1:
+        # rows 4 bytes off a 16-byte boundary take the generic kernel
+        buf = torch.empty(n * 4 + 1, device=cuda)
+        a_off = buf[1:].view(n, 4)
+        a_off.copy_(a)
+        assert a_off.data_ptr() % 16
+        _gram_ok(ops.gram(a_off, bb, alpha=-0.5), a, bb, -0.5)
+
+
+@pytest.mark.gpu
+def test_gram_ticket_counter_on_one_and_two_streams(cuda):
+    """The last-CTA ticket counter is one per (device, stream) and back at
+    0 after every launch: back-to-back grams on one stream, and grams
+    interleaved on two streams, each give the bits of a lone call."""
+    a, bb = _gram_case(cuda, 2 ** 20, 4, 4, seed=71)
+    c, d = _gram_case(cuda, 300_000, 4, 4, seed=72)
+    e, f = _gram_case(cuda, 5000, 3, 5, seed=73)
+    want = [ops.gram(a, bb), ops.gram(c, d), ops.gram(e, f)]
+    torch.cuda.synchronize()
+    got = [ops.gram(a, bb), ops.gram(c, d), ops.gram(e, f), ops.gram(a, bb)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want + want[:1]))
+    s1, s2 = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    outs1, outs2 = [], []
+    for _ in range(4):
+        with torch.cuda.stream(s1):
+            outs1.append(ops.gram(a, bb))
+        with torch.cuda.stream(s2):
+            outs2.append(ops.gram(c, d))
+            outs2.append(ops.gram(e, f))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want[0]) for o in outs1)
+    assert all(torch.equal(o, want[1 + i % 2]) for i, o in enumerate(outs2))
+    keys = {(cuda.index or 0, s.cuda_stream) for s in (s1, s2)}
+    counters = [gram._COUNTERS[k] for k in keys]
+    assert counters[0].data_ptr() != counters[1].data_ptr()
+    assert all(int(t.item()) == 0 for t in gram._COUNTERS.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,b", [(2 ** 20, 4, 4), (2 ** 20, 4, 8),
+                                   (1000, 24, 8), (333, 5, 3), (1, 4, 8)])
+@pytest.mark.parametrize("with_c0", [True, False])
+def test_tsgemm_kernel_widths(cuda, n, m, b, with_c0):
+    """One thread per row: float4 rows at (4, 4) and (4, 8), the generic
+    kernel at other widths; with and without C0, within tolerance of the
+    plain version and bit-identical run to run. The float4 kernel keeps
+    the generic kernel's arithmetic order, so rows 4 bytes off a 16-byte
+    boundary (the generic kernel) give the same bits."""
+    g = np.random.default_rng(n % 997 + 10 * b)
+    a = _t(g.standard_normal((n, m)).astype(np.float32)).to(cuda)
+    small = _t(g.standard_normal((m, b)).astype(np.float32)).to(cuda)
+    c0 = (_t(g.standard_normal((n, b)).astype(np.float32)).to(cuda)
+          if with_c0 else None)
+    kw = dict(alpha=1.5, beta=-0.75, c0=c0)
+    before = tsgemm.LAUNCHES
+    got = ops.tsgemm(a, small, **kw)
+    assert tsgemm.LAUNCHES == before + 1
+    assert got.shape == (n, b) and torch.equal(got, ops.tsgemm(a, small, **kw))
+    _close(got.cpu(), ops.tsgemm(a, small, impl="ref", **kw).cpu())
+    buf = torch.empty(n * m + 1, device=cuda)
+    a_off = buf[1:].view(n, m)
+    a_off.copy_(a)
+    assert torch.equal(got, ops.tsgemm(a_off, small, **kw))
 
 
 @pytest.mark.gpu

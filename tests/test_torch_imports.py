@@ -1,6 +1,8 @@
-"""The PyTorch port stands alone: importing it loads neither JAX nor any
-module of the JAX package, and its entry points never carry on on the CPU
-when no device was asked for and there is no card."""
+"""The PyTorch port stands alone: importing it loads neither JAX, nor
+ml_dtypes (JAX's numpy types; the card's machine has neither), nor any
+module of the JAX package, and chip_smoke.py imports none of them either;
+its entry points never carry on on the CPU when no device was asked for
+and there is no card."""
 import os
 import pkgutil
 import re
@@ -38,7 +40,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro.")
-                     or m == "triton" or m.startswith("triton."))
+                     or m == "triton" or m.startswith("triton.")
+                     or m == "ml_dtypes" or m.startswith("ml_dtypes."))
         print("BAD", bad)
     """)
     env = dict(os.environ, PYTHONPATH=SRC)
@@ -50,20 +53,20 @@ def test_import_loads_no_jax_and_no_reference_module():
 
 _FORBIDDEN = [re.compile(p) for p in (
     r"^\s*import\s+jax\b", r"^\s*from\s+jax\b",
+    r"^\s*import\s+ml_dtypes\b", r"^\s*from\s+ml_dtypes\b",
     r"^\s*import\s+repro(\.|\s|$|,)", r"^\s*from\s+repro(\.|\s)")]
 
 
 def test_sources_import_no_jax_and_no_reference_module():
-    offenders = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PORT):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(root, f)
-            with open(path) as fh:
-                for ln, line in enumerate(fh, 1):
-                    if any(p.search(line) for p in _FORBIDDEN):
-                        offenders.append(f"{path}:{ln}: {line.strip()}")
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            for ln, line in enumerate(fh, 1):
+                if any(p.search(line) for p in _FORBIDDEN):
+                    offenders.append(f"{path}:{ln}: {line.strip()}")
     assert not offenders, offenders
 
 
