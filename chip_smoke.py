@@ -38,34 +38,56 @@ otherwise. Phases, each of which fails the run:
      ≤ 1e-4 against the bf16 operator and eigenvalues within Weyl's bound
      (2^-8 · max row sum of the blocks, plus the residuals) of the
      float32 solve's; its profiled breakdown; then the cast is freed;
-  9. flash attention, after the graph image is freed: the kernel against
+  9. SAFS subspace: the solve of 5 again, with the subspace in SAFS page
+     files (`TieredStore(backend="safs")` under a new temporary
+     directory) and the image resident on the card, counters zeroed just
+     before and read just after: converged with true residuals ≤ 1e-4,
+     every solver kernel launched, logical IOStats equal to the RAM-tier
+     solve's to the byte; its wall beside the RAM solve's, the backend's
+     `stats_dict()`, the page path's rates (host spans) and the page
+     root's filesystem; then one scrub pass, which must find no corrupt
+     page; then the 2^20 image is freed;
+ 10. SAFS streamed image: `rmat_graph(2**16, 2**19, seed=1,
+     symmetric=True)` packed as in 3, spilled by
+     `GraphOperator(stream_image=True)` into a SAFS store as block-row
+     spans; one streamed matmat equals the resident operator's bit for
+     bit (under deterministic algorithms, so the COO part's `index_add_`
+     sums in a fixed order); matmat times streamed and resident; the
+     solve of 5 over the streamed image, counters zeroed just before and
+     read just after: converged with true residuals ≤ 1e-4 and one SpMM
+     launch per non-empty span per matmat; then the image is deleted and
+     the directory removed;
+ 11. flash attention, after the graph image is freed: the kernel against
      its plain version (float32 arithmetic on the same bf16 inputs) at the
      yi-9b prefill shapes (B 4, S 2048, H 32, Hkv 4, d 128, causal) and at
      a ragged non-causal shape (Sq 96, Sk 160, d 64), run-to-run bit
      identity, timed beside the plain version, PyTorch's
      scaled_dot_product_attention and the card's bound, with its TFLOP/s
      and the PV design the bf16 kernel ships (P split into bf16 hi + lo);
- 10. yi-9b serving at full width and all 48 layers in bf16, weights drawn
+ 12. yi-9b serving at full width and all 48 layers in bf16, weights drawn
      on the card by `init_model` from a seed: 4 requests of 2,048 prompt
      tokens through `prefill_with_cache(..., cache_len=2080)`, then 32
      greedy `decode_step`s, with the launch counters zeroed just before
      and read just after (48 flash launches per prefill); then one
      `logits_fn` over prompt plus generated tokens, whose logits at the
      generated positions must agree with the decode logits;
- 11. serve breakdown: one profiled prefill and 4 profiled decode steps
+ 13. serve breakdown: one profiled prefill and 4 profiled decode steps
      (device time by kind, idle share, the largest host ops).
 
 Then one JSON line of kernels, the card line, and the final result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -83,6 +105,10 @@ NEV, BLOCK_SIZE, NUM_BLOCKS, TOL, MAX_ITERS = 8, 4, 8, 1e-5, 100
 RESID_TOL = 1e-4
 KERNEL_TOL = 1e-5   # |kernel − plain| ≤ KERNEL_TOL · Σ|terms|, per element
 REPS = 10
+# the streamed-image graph: rmat_graph(2**k, 2**(k+3)); k = 16 keeps the
+# phase near a minute on the card (every matmat pages the whole image
+# through the SAFS page path, 4 KiB at a time)
+STREAM_LOG2 = 16
 
 # flash attention at yi-9b's prefill shapes (B, H, Hkv, S, d), bf16
 FLASH_SERVE = (4, 32, 4, 2048, 128)
@@ -419,19 +445,26 @@ def read_counters(rows) -> dict:
     return {r["name"]: r["count"]() for r in rows}
 
 
-def solve_main_path(torch, op, rows, label: str, launched, idle):
+def solve_main_path(torch, op, rows, label: str, launched, idle,
+                    store=None, tracer=None):
     """A counted run: launch counters zeroed just before, read just
     after. Every row named in `launched` must have launched, none of
-    `idle`."""
+    `idle`. `store` defaults to a RAM-tier TieredStore on the card; a
+    `tracer` records the solve's host spans. Returns the launches, the
+    result, its true residuals and the solve's wall seconds."""
     from repro_torch.core import TieredStore, solve, true_residuals
-    store = TieredStore(device=op.device)
+    from repro_torch.obs import tracing
+    if store is None:
+        store = TieredStore(device=op.device)
     op.store = store
     zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = solve(op, NEV, method="krylov_schur", block_size=BLOCK_SIZE,
-                num_blocks=NUM_BLOCKS, tol=TOL, max_iters=MAX_ITERS,
-                store=store)
+    with (tracing(tracer) if tracer is not None
+          else contextlib.nullcontext()):
+        res = solve(op, NEV, method="krylov_schur", block_size=BLOCK_SIZE,
+                    num_blocks=NUM_BLOCKS, tol=TOL, max_iters=MAX_ITERS,
+                    store=store)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters(rows)
@@ -461,7 +494,167 @@ def solve_main_path(torch, op, rows, label: str, launched, idle):
         if launches[name] != 0:
             fail(f"kernel {name} launched {launches[name]} times on the "
                  f"{label} path")
-    return launches, res, resid
+    return launches, res, resid, wall
+
+
+# ------------------------------------------------------------------ SAFS
+
+def root_line(root: str) -> str:
+    """The filesystem that holds `root` (the longest mount point over it
+    in /proc/mounts) and its free space."""
+    real = os.path.realpath(root)
+    best = ("?", "?", "")
+    with open("/proc/mounts") as fh:
+        for line in fh:
+            dev, mnt, fstype = line.split()[:3]
+            if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best[2]):
+                best = (dev, fstype, mnt)
+    st = os.statvfs(root)
+    return (f"page root {root} on {best[1]} ({best[0]} at {best[2]}), "
+            f"{st.f_bavail * st.f_frsize / 1e9:.1f} GB free")
+
+
+def span_rates(tracer) -> dict:
+    """Bytes over seconds of the host spans that carry the page path:
+    store.get (a host-tier block assembled from pages and copied to the
+    card), store.demote (a block copied to the host and split into
+    pages) and safs.fill (a readahead worker's disk read), summed over
+    the run."""
+    out = {}
+    for name in ("store.get", "store.demote", "safs.fill"):
+        spans = [r for r in tracer.records()
+                 if r["type"] == "span" and r["name"] == name]
+        nbytes = sum(int(r["args"].get("bytes", 0)) for r in spans)
+        secs = sum(r["dur"] for r in spans) / 1e6
+        out[name] = {"spans": len(spans), "GB": nbytes / 1e9,
+                     "s": secs, "GB/s": nbytes / secs / 1e9 if secs else None}
+    return out
+
+
+def safs_subspace_phase(torch, op, rows, res_ram, wall_ram) -> None:
+    """The main solve with the subspace in SAFS page files on the card's
+    host, the image resident on the card."""
+    from repro_torch.core import TieredStore
+    from repro_torch.obs import Tracer
+    from repro_torch.safs import Scrubber
+    root = tempfile.mkdtemp(prefix="safs_subspace_")
+    try:
+        log(f"safs: {root_line(root)}")
+        store = TieredStore(backend="safs", backend_opts={"root": root},
+                            device=op.device)
+        tracer = Tracer()
+        launches, res, _, wall = solve_main_path(
+            torch, op, rows, "SAFS-subspace float32",
+            launched=["spmm_blocksparse", "gram", "tsgemm"],
+            idle=["spmm_blocksparse_bf16"], store=store, tracer=tracer)
+        t0 = time.perf_counter()
+        store.flush()
+        flush_s = time.perf_counter() - t0
+        snap = store.backend.stats_dict()
+        phys, logical = snap["io"], res.io_stats
+        log(f"safs subspace: solve wall {wall:.3f} s against {wall_ram:.3f}"
+            f" s on the RAM tier | restarts {res.n_restarts} vs "
+            f"{res_ram.n_restarts} | logical IOStats equal to the RAM "
+            f"solve's: {logical == res_ram.io_stats} | physical read "
+            f"{phys['host_bytes_read'] / 1e9:.3f} GB, written "
+            f"{phys['host_bytes_written'] / 1e9:.3f} GB, page-cache hit "
+            f"rate {phys['hit_rate']:.4f} | prefetch overlap "
+            f"{snap['prefetch']['overlap_seconds']:.3f} s | final flush "
+            f"{flush_s:.3f} s")
+        log(f"safs subspace: page path {json.dumps(span_rates(tracer))}")
+        log(f"safs subspace: stats_dict {json.dumps(snap)}")
+        if logical != res_ram.io_stats:
+            fail(f"SAFS solve's logical IOStats differ from the RAM "
+                 f"solve's: {logical} vs {res_ram.io_stats}")
+        t0 = time.perf_counter()
+        scrub = Scrubber(store.backend).run_once()
+        integrity = store.backend.stats_dict()["integrity"]
+        log(f"safs subspace: scrub {scrub['files']} files, "
+            f"{scrub['pages']} pages in {time.perf_counter() - t0:.3f} s, "
+            f"corrupt {scrub['corrupt']} | integrity "
+            f"{json.dumps(integrity)}")
+        if scrub["corrupt"] or integrity["crc_failures"]:
+            fail(f"the scrub found corrupt pages: {scrub['corrupt']}")
+        store.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def safs_stream_phase(torch, dev, rows) -> None:
+    """The image itself in SAFS page files: a streamed GraphOperator
+    against the resident one, then the solve over it."""
+    from repro_torch.core import GraphOperator, TieredStore
+    from repro_torch.obs import Tracer, tracing
+    tm, _ = make_graph(STREAM_LOG2, STREAM_LOG2 + 3)
+    root = tempfile.mkdtemp(prefix="safs_image_")
+    try:
+        log(f"safs image: {root_line(root)}")
+        store = TieredStore(backend="safs", backend_opts={"root": root},
+                            device=dev)
+        t0 = time.perf_counter()
+        op = GraphOperator(tm, store=store, stream_image=True)
+        store.flush()
+        spill = time.perf_counter() - t0
+        resident = GraphOperator(tm, device=dev)
+        spans = sum(1 for c in op._spans if c.n_blocks)
+        x = torch.randn((op.n, BLOCK_SIZE), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(9))
+        torch.use_deterministic_algorithms(True)
+        try:
+            y_s = op.matmat(x)
+            y_r = resident.matmat(x)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same = torch.equal(y_s, y_r)
+
+        def timed(fn, reps=3):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            return statistics.median(times)
+
+        tracer = Tracer()
+        with tracing(tracer):
+            t_s = timed(lambda: op.matmat(x))
+        t_r = timed(lambda: resident.matmat(x))
+        image = tm.nbytes_image()
+        log(f"safs image: n={op.n}, image {image / 1e9:.3f} GB in "
+            f"{len(op._spans)} spans ({spans} with blocks) spilled in "
+            f"{spill:.2f} s | streamed matmat bit-identical to the "
+            f"resident one: {same} (deterministic algorithms on) | matmat "
+            f"{t_s * 1e3:.1f} ms streamed against {t_r * 1e3:.3f} ms "
+            f"resident (median of 3) = {image / t_s / 1e9:.3f} GB/s of "
+            f"image streamed | page path "
+            f"{json.dumps(span_rates(tracer))}")
+        if not same:
+            fail("the streamed matmat differs from the resident one: max "
+                 f"|diff| {float((y_s - y_r).abs().max())}")
+        del resident, y_s, y_r
+        launches, res, _, wall = solve_main_path(
+            torch, op, rows, "streamed float32",
+            launched=["spmm_blocksparse", "gram", "tsgemm"],
+            idle=["spmm_blocksparse_bf16"], store=store)
+        want = spans * res.n_ops
+        log(f"safs image: solve wall {wall:.3f} s, {res.n_ops} matmats | "
+            f"spmm_blocksparse launches {launches['spmm_blocksparse']} = "
+            f"{spans} spans x {res.n_ops} matmats: "
+            f"{launches['spmm_blocksparse'] == want} | backend io "
+            f"{json.dumps(store.backend.stats_dict()['io'])}")
+        if launches["spmm_blocksparse"] != want:
+            fail(f"spmm_blocksparse launched {launches['spmm_blocksparse']}"
+                 f" times, not {spans} spans x {res.n_ops} matmats")
+        op.delete_image()
+        left = [n for n in store.names() if n.startswith(op._name + "/")]
+        if left:
+            fail(f"delete_image left image entries: {left[:4]}")
+        store.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def weyl_check(torch, op, res32, resid32, res16, resid16) -> None:
@@ -839,7 +1032,7 @@ def main() -> None:
     solver_rows = [r["name"] for r in rows]
 
     small_reference_check(torch, dev)   # also warms cuBLAS / cuSOLVER
-    launches, res32, resid32 = solve_main_path(
+    launches, res32, resid32, wall32 = solve_main_path(
         torch, op, rows, "float32", launched=solver_rows, idle=())
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -854,16 +1047,19 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(8)
     rows.insert(1, spmm_phase(torch, op16, timer, torch.randn(
         (op.n, BLOCK_SIZE), generator=gen, device=dev)))
-    launches, res16, resid16 = solve_main_path(
+    launches, res16, resid16, _ = solve_main_path(
         torch, op16, rows, "bf16", launched=["spmm_blocksparse_bf16",
                                              "gram", "tsgemm"],
         idle=["spmm_blocksparse"])
     rows[1]["launches"] = launches["spmm_blocksparse_bf16"]
     weyl_check(torch, op, res32, resid32, res16, resid16)
     breakdown(torch, op16, "bf16")
-    del op16, op, tm                     # free the 12.86 + 6.43 GB images
+    del op16
+    safs_subspace_phase(torch, op, rows, res32, wall32)
+    del op, tm                           # free the 12.86 GB image
     gc.collect()
     torch.cuda.empty_cache()
+    safs_stream_phase(torch, dev, rows)
 
     rows.append(flash_phase(torch, timer, dev))
     launches = serve(torch, dev, rows, card_line)

@@ -4,7 +4,7 @@ The LM side of the port runs dense GQA models so far. The reference's
 other architectures need layers the port does not have yet (MoE, SSM,
 RG-LRU, sliding-window and cross-attention, audio and patch frontends):
 `get` and `reduced` raise `NotImplementedError` for them, naming
-ROADMAP.md queue 1 item 8.
+ROADMAP.md queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ def get(name: str) -> ArchConfig:
         raise NotImplementedError(
             f"config {name!r} is not ported: the port runs "
             f"{sorted(ARCHS)}; the other architectures' layers are "
-            f"ROADMAP.md queue 1 item 8")
+            f"ROADMAP.md queue 1 item 7")
     return ARCHS[name]
 
 

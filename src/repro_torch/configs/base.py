@@ -2,7 +2,7 @@
 
 The port keeps its own copy so that it imports nothing of the JAX
 package. `ShapeConfig` and `SHAPES` (the dry-run's input shapes) wait
-for the compile-analysis tooling, ROADMAP.md queue 1 item 9.
+for the compile-analysis tooling, ROADMAP.md queue 1 item 8.
 """
 from __future__ import annotations
 

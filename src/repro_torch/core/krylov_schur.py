@@ -68,15 +68,15 @@ def eigsh(op, nev: int, *, block_size: int = 4, num_blocks: int | None = None,
     reproduce; a parity test passes the reference's draw as x0.)
 
     The store defaults to a `TieredStore` on the operator's device.
-    `checkpointer` is not ported yet (ROADMAP queue 1 item 5) and raises.
+    `checkpointer` is not ported yet (ROADMAP queue 1 item 4) and raises.
     """
     if checkpointer is not None:
         raise NotImplementedError(
-            "checkpoint/resume is not ported yet: ROADMAP.md queue 1 item 5")
+            "checkpoint/resume is not ported yet: ROADMAP.md queue 1 item 4")
     if CAP_FUSED_EXPAND in capabilities(op):
         raise NotImplementedError(
             "operator-fused expansion (the sharded operator) is not ported "
-            "yet: ROADMAP.md queue 1 item 6")
+            "yet: ROADMAP.md queue 1 item 5")
     b = block_size
     if num_blocks is None:
         num_blocks = 2 * (-(-nev // b)) + 2

@@ -14,7 +14,7 @@ eigenvalues are wanted:
              pass (4 reads) for parity tests.
 
 `svqb` / `svqb_transform` come with the LOBPCG port (ROADMAP queue 1
-item 4).
+item 3).
 """
 from __future__ import annotations
 

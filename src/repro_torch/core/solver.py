@@ -12,8 +12,8 @@ single-consumer passes), the convergence targets and the per-restart
 
 Not ported yet, and raising `NotImplementedError` that names the ROADMAP
 item: the other family members ("lanczos", "lobpcg", "svd") and the
-spectral transforms (queue 1 item 4), `trace=` (item 5, with the rest of
-`repro.obs`) and `checkpoint=` / `resume=` (item 5).
+spectral transforms (queue 1 item 3), `trace=` (item 4, with the rest of
+`repro.obs`) and `checkpoint=` / `resume=` (item 4).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from repro_torch.core.tiered import TieredStore
 from repro_torch.kernels import ops as kops
 
 # family members of the reference that are still to port, by ROADMAP item
-_NOT_PORTED = {"lanczos": 4, "lobpcg": 4, "svd": 4}
+_NOT_PORTED = {"lanczos": 3, "lobpcg": 3, "svd": 3}
 
 
 @dataclasses.dataclass
@@ -113,10 +113,10 @@ def solve(op, nev: int, *, method: str = "krylov_schur",
     if trace is not None:
         raise NotImplementedError(
             "solve(trace=...) needs the rest of repro.obs (metrics, "
-            "progress, report): ROADMAP.md queue 1 item 5")
+            "progress, report): ROADMAP.md queue 1 item 4")
     if checkpoint is not None or resume is not None:
         raise NotImplementedError(
-            "checkpoint/resume is not ported yet: ROADMAP.md queue 1 item 5")
+            "checkpoint/resume is not ported yet: ROADMAP.md queue 1 item 4")
     if method in _NOT_PORTED and method not in _REGISTRY:
         raise NotImplementedError(
             f"method {method!r} is not ported yet: ROADMAP.md queue 1 item "
@@ -127,7 +127,7 @@ def solve(op, nev: int, *, method: str = "krylov_schur",
     if CAP_SPECTRAL_TRANSFORM in capabilities(op):
         raise NotImplementedError(
             "spectral transforms are not ported yet: ROADMAP.md queue 1 "
-            "item 4")
+            "item 3")
     solver = _REGISTRY[method]
     if which is None:
         which = getattr(solver, "default_which", "LM")

@@ -1,23 +1,32 @@
 """TieredStore — the slow tier with byte-exact I/O accounting.
 
 Port of `repro.core.tiered` without the multi-tenant `namespace()` facade
-(`StoreNamespace` waits for the serving slice, ROADMAP queue 1 item 7)
-and without what only the SSD-streamed image and transposed views use:
-read-only entries and shared `data_id`s (item 3).
+(`StoreNamespace` and its per-session budgets and splits wait for the
+serving slice, ROADMAP queue 1 item 6).
 
 The paper keeps the Krylov subspace on SSD (§3.4) and fights for read
 bandwidth and write endurance. Here the device tier is tensors on the
 store's device (the H100's memory) and the slow tier is the backend:
-pinned host memory reached over PCIe (`backend="ram"`). `stats` counts
-logical tier traffic to the byte exactly as the reference does, so the
-two packages' `IOStats.as_dict()` are equal for the same sequence of
-operations: the counters measure bytes moved, not time.
+
+  backend="ram"   pinned host memory reached over PCIe;
+  backend="safs"  the paper's layer — one page file per data_id under
+                  `backend_opts["root"]`, an LRU page cache with async
+                  write-behind and most-recent-block pinning, and a
+                  readahead pool (`safs.backend.SafsBackend`).
+
+`stats` counts logical tier traffic to the byte exactly as the reference
+does, so the two packages' `IOStats.as_dict()` are equal for the same
+sequence of operations: the counters measure bytes moved, not time. With
+safs the backend's own `stats` count the physical disk bytes as well.
 
 Policies from §3.4.4:
   * most-recent-block caching — the newest subspace block stays in the
     device tier (`pin`), and the most recently appended-then-demoted
     block's pages stay pinned in the backend's page cache (`host_pin`,
     driven by MultiVector.append_block; a no-op on the RAM backend);
+  * data identifiers — an entry's bytes live in the backend under its
+    `data_id` (its name unless `put` gives another), so entries sharing
+    one id share the cached pages;
   * write-avoidance — demotion only writes when the block is dirty.
 """
 from __future__ import annotations
@@ -31,10 +40,26 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import from_numpy
 from repro_torch.obs import trace
 
 DEVICE = "device"
 HOST = "host"  # the "SSD" tier
+
+NS_SEP = "::"  # session prefix in qualified ids: "<session_id>::<name>"
+
+
+def ns_of(data_id: str) -> str:
+    """Namespace (session id) of a qualified id; "" for root-owned ids.
+    The SAFS backend files and accounts a namespaced id per session."""
+    i = data_id.find(NS_SEP)
+    return data_id[:i] if i >= 0 else ""
+
+
+class ReadOnlyError(RuntimeError):
+    """Write attempted against a read-only store entry (streamed matrix
+    image chunks: per-chunk dirty tracking is not implemented, so a write
+    would silently diverge from the on-disk image)."""
 
 
 @dataclasses.dataclass
@@ -79,15 +104,28 @@ class IOStats:
 
 @dataclasses.dataclass
 class _Entry:
+    data_id: str
     tier: str
     device_val: Optional[torch.Tensor]
-    has_host: bool                 # backend holds a copy under the name
+    has_host: bool                 # backend holds a copy of data_id
     nbytes: int
     dirty: bool                    # device copy newer than host copy
+    readonly: bool = False         # writes raise (streamed matrix image)
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _host_tensor(value) -> torch.Tensor:
+    """A tensor as it is; a numpy array as a CPU tensor of its bytes (bf16
+    by its type's name). A read-only array (e.g. a view of a JAX buffer)
+    is copied first."""
+    if isinstance(value, np.ndarray):
+        if not value.flags.writeable:
+            value = value.copy()
+        return from_numpy(value)
+    return value
 
 
 class TieredStore:
@@ -97,7 +135,9 @@ class TieredStore:
     demotes the least-recently-used non-pinned entries to the host tier
     (counted as slow-tier writes if dirty). `device=None` means the CUDA
     card and raises when there is none; pass `device="cpu"` to run the
-    whole store on the CPU (the tests do).
+    whole store on the CPU (the tests do). The host tier's bytes live in
+    `backend` ("ram" | "safs" | a constructed backend; see the module
+    docstring), which takes `backend_opts` and the store's device.
     """
 
     def __init__(self, device_budget_bytes: int = 1 << 62, *,
@@ -113,17 +153,14 @@ class TieredStore:
         self._lru: "OrderedDict[str, None]" = OrderedDict()  # oldest first
         self._pinned: set[str] = set()
         self._recent_host_id: Optional[str] = None   # page-cache pin slot
+        #                                              (a data_id)
         self._device_nbytes = 0
         self._lock = threading.RLock()
 
     def as_tensor(self, value) -> torch.Tensor:
         """`value` (numpy array or tensor) as a tensor on the store's
         device."""
-        if isinstance(value, np.ndarray):
-            # a read-only array (e.g. a view of a JAX buffer) is copied
-            value = (torch.from_numpy(value) if value.flags.writeable
-                     else torch.tensor(value))
-        return value.to(self.device)
+        return _host_tensor(value).to(self.device)
 
     # -- residency accounting -------------------------------------------------
     def device_bytes(self) -> int:
@@ -151,10 +188,22 @@ class TieredStore:
                 self.demote(name)
 
     # -- core API --------------------------------------------------------------
-    def put(self, name: str, value, *, tier: str = DEVICE) -> None:
+    def put(self, name: str, value, *, tier: str = DEVICE,
+            data_id: str | None = None, readonly: bool = False) -> None:
+        """Store `value` under `name`, on the device tier or written
+        straight to the host tier (a host-tier value is not moved to the
+        device first). Its bytes live in the backend under `data_id`
+        (default `name`). A read-only entry refuses any later put."""
         with self._lock:
             prev = self._entries.get(name)
-            t = self.as_tensor(value)
+            if prev is not None and prev.readonly:
+                raise ReadOnlyError(
+                    f"store entry {name!r} is read-only (streamed matrix "
+                    f"image chunk; per-chunk dirty tracking is not "
+                    f"implemented — rebuild the operator instead of "
+                    f"writing through it)")
+            t = self.as_tensor(value) if tier == DEVICE else \
+                _host_tensor(value)
             nbytes = _nbytes(t)
             if prev is not None:
                 # retire the stale entry before eviction runs, so
@@ -166,12 +215,15 @@ class TieredStore:
                 self._lru.pop(name, None)
             if tier == DEVICE:
                 self._evict_for(nbytes)
-                self._entries[name] = _Entry(DEVICE, t, False, nbytes, True)
+                self._entries[name] = _Entry(data_id or name, DEVICE, t,
+                                             False, nbytes, True, readonly)
                 self._device_nbytes += nbytes
             else:
-                self.backend.store(name, t)
+                e = _Entry(data_id or name, HOST, None, True, nbytes, False,
+                           readonly)
+                self.backend.store(e.data_id, t)
                 self.stats.add(host_bytes_written=nbytes, host_writes=1)
-                self._entries[name] = _Entry(HOST, None, True, nbytes, False)
+                self._entries[name] = e
             self._touch(name)
 
     def get(self, name: str) -> torch.Tensor:
@@ -185,8 +237,8 @@ class TieredStore:
             self.stats.add(cache_misses=1, host_bytes_read=e.nbytes,
                            host_reads=1)
             with trace.span("store.get", block=name, bytes=e.nbytes):
-                return self.backend.load(name).to(self.device,
-                                                  non_blocking=True)
+                return self.backend.load(e.data_id).to(self.device,
+                                                       non_blocking=True)
 
     def promote(self, name: str) -> torch.Tensor:
         """Move to device tier (counted read if it was on host)."""
@@ -208,7 +260,7 @@ class TieredStore:
                 return
             if e.dirty or not e.has_host:
                 with trace.span("store.demote", block=name, bytes=e.nbytes):
-                    self.backend.store(name, e.device_val)
+                    self.backend.store(e.data_id, e.device_val)
                 e.has_host = True
                 self.stats.add(host_bytes_written=e.nbytes, host_writes=1)
             e.device_val, e.tier, e.dirty = None, HOST, False
@@ -219,14 +271,13 @@ class TieredStore:
         host_pin supersedes it (§3.4.4 "cache the most recent dense
         matrix"; owned by MultiVector.append_block)."""
         with self._lock:
-            if name not in self._entries:
-                raise KeyError(name)
-            if self._recent_host_id == name:
+            data_id = self._entries[name].data_id
+            if self._recent_host_id == data_id:
                 return
             if self._recent_host_id is not None:
                 self.backend.unpin(self._recent_host_id)
-            self.backend.pin(name)
-            self._recent_host_id = name
+            self.backend.pin(data_id)
+            self._recent_host_id = data_id
 
     def pin(self, name: str) -> None:
         """Pin in device tier — the most-recent-block cache of §3.4.4."""
@@ -245,10 +296,11 @@ class TieredStore:
                 self._device_nbytes -= e.nbytes
             self._lru.pop(name, None)
             self._pinned.discard(name)
-            if e is not None:
-                self.backend.delete(name)
-                if self._recent_host_id == name:
-                    self.backend.unpin(name)
+            if e is not None and not any(o.data_id == e.data_id
+                                         for o in self._entries.values()):
+                self.backend.delete(e.data_id)
+                if self._recent_host_id == e.data_id:
+                    self.backend.unpin(e.data_id)
                     self._recent_host_id = None
 
     def names(self):
@@ -258,6 +310,36 @@ class TieredStore:
     def tier_of(self, name: str) -> str:
         with self._lock:
             return self._entries[name].tier
+
+    # -- checkpoint plumbing ----------------------------------------------------
+    def sync_device_entries(self) -> None:
+        """Write device-tier entries with no current host copy through to
+        the backend (residency unchanged: the entry just becomes clean
+        with a host copy, as after a promote). A page-file snapshot of
+        the store then misses no block (the checkpoint layer, ROADMAP
+        queue 1 item 4, calls it)."""
+        with self._lock:
+            for e in self._entries.values():
+                if e.tier == DEVICE and (e.dirty or not e.has_host):
+                    self.backend.store(e.data_id, e.device_val)
+                    e.has_host, e.dirty = True, False
+
+    def data_ids(self) -> list[str]:
+        """Backend ids owned by this store, each once, in entry order:
+        what a snapshot of the store's page files covers (on a shared
+        backend, not `backend.data_ids()`)."""
+        with self._lock:
+            out, seen = [], set()
+            for e in self._entries.values():
+                if e.has_host and e.data_id not in seen:
+                    seen.add(e.data_id)
+                    out.append(e.data_id)
+            return out
+
+    def resolve_data_id(self, name: str) -> str:
+        """Qualified backend id for a logical name (the identity here; a
+        namespace facade prefixes its session)."""
+        return name
 
     def account_read(self, nbytes: int, *, reads: int = 1) -> None:
         """Attribute an out-of-band slow-tier read (the operator's matrix
@@ -288,14 +370,21 @@ class TieredStore:
             self.backend.prefetch(ids)
 
     def stream(self, names: Iterable[str], *, readahead: int = 2):
-        """Yield `get(name)` for each name while announcing the next
-        `readahead` entries to the backend (the sequential-scan driver of
-        the SSD-streamed image, ROADMAP queue 1 item 3)."""
+        """Yield `get(name)` for each name while keeping the next
+        `readahead` entries' pages in flight on the backend's readahead
+        pool: the sequential-scan driver of the SSD-streamed image
+        (`GraphOperator(stream_image=True)`). On the ram backend it is a
+        plain `get` loop."""
         names = list(names)
         for i, nm in enumerate(names):
             if readahead > 0:
                 self.prefetch(names[i + 1:i + 1 + readahead])
             yield self.get(nm)
+
+    def flush(self) -> None:
+        """Force dirty host-tier pages down to the physical medium (a
+        durability barrier on the safs backend; nothing on ram)."""
+        self.backend.flush()
 
     def close(self) -> None:
         self.backend.close()

@@ -72,6 +72,14 @@ class Plan:
             and mine.data_ptr() == row_ptr.data_ptr())
 
 
+def sm_count(device) -> int:
+    """The SMs of a CUDA device; N_SMS for any other device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return N_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def default_chunk(n_blocks: int, n_sms: int = N_SMS) -> int:
     """An eighth of the per-SM share of blocks on a card of `n_sms` SMs,
     within [CHUNK_MIN, CHUNK_MAX]: a chunk stays far below what one SM has
@@ -104,9 +112,7 @@ def plan(row_ptr, *, chunk: int | None = None, device=None) -> Plan:
     counts = np.diff(ptr)
     n_blocks = int(ptr[-1])
     if chunk is None:
-        n_sms = (torch.cuda.get_device_properties(device).multi_processor_count
-                 if device.type == "cuda" else N_SMS)
-        chunk = default_chunk(n_blocks, n_sms)
+        chunk = default_chunk(n_blocks, sm_count(device))
     if chunk < 1:
         raise ValueError(f"plan: chunk must be >= 1, got {chunk}")
     pieces = np.maximum(1, -(-counts // chunk))

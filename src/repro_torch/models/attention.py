@@ -15,7 +15,7 @@ Routing in `attn_forward`:
   against the cache), stay plain PyTorch in `_attend`, as in the
   reference, which runs no kernel there either. Cross-attention decode
   (`precompute_cross_kv`) waits for the cross-attention layers (ROADMAP.md
-  queue 1 item 8).
+  queue 1 item 7).
 
 Numerics: `_attend` rounds the softmax weights to v's dtype before the PV
 product, as the reference does; the flash path keeps them float32, as the

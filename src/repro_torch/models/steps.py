@@ -1,7 +1,7 @@
 """prefill_step / decode_step builders (port of `repro.models.steps`).
 
 Each builder returns a plain function of explicit state. `build_train_step`
-and `init_all` wait for the optimizer port (ROADMAP.md queue 1 item 8).
+and `init_all` wait for the optimizer port (ROADMAP.md queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ remat: the port runs inference only.
 Only dense attention layers are ported: the pattern element "attn" with
 an MLP. Sliding-window, cross-attention, SSM and RG-LRU layers, MoE FFNs
 (`n_experts > 0`) and the audio/patch frontends raise
-`NotImplementedError` (ROADMAP.md queue 1 item 8).
+`NotImplementedError` (ROADMAP.md queue 1 item 7).
 
 Entry points take token ids as tensors or array-likes and run where the
 caller says: on `device` when one is given, else on the device of a token
@@ -30,7 +30,7 @@ from repro_torch.models.modules import (apply_mlp, apply_norm, cross_entropy,
                                         init_embedding, init_linear,
                                         init_mlp, init_norm, lm_logits)
 
-_TODO = "is not ported yet (ROADMAP.md queue 1 item 8)"
+_TODO = "is not ported yet (ROADMAP.md queue 1 item 7)"
 
 
 def _require_dense(cfg: ArchConfig, encoder=None) -> None:

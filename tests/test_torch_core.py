@@ -277,8 +277,9 @@ def test_graph_operator_matches_reference():
                ref_op.matmat(jnp.asarray(x)), rtol=1e-6)
     assert store.stats.as_dict() == ref_store.stats.as_dict()
     assert store.stats.host_bytes_read == 2 * ref_tm.nbytes_image()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        GraphOperator(tm, store=store, stream_image=True)
+    # the streamed image lives in a store (tests/test_torch_safs.py)
+    with pytest.raises(ValueError, match="requires a TieredStore"):
+        GraphOperator(tm, stream_image=True, device="cpu")
 
 
 def _dense_abs(tm) -> np.ndarray:

@@ -8,11 +8,13 @@ Ritz values agree to rtol 1e-5 at every restart and the I/O counters
 are equal.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import GraphOperator as RefGraphOperator
 from repro.core import TieredStore as RefTieredStore
@@ -112,15 +114,15 @@ def test_solve_raises_for_what_is_not_ported(graph):
     _, tm, _ = graph
     op, store = _port_op(tm)
     for method in ("lanczos", "lobpcg", "svd"):
-        with pytest.raises(NotImplementedError, match="item 4"):
+        with pytest.raises(NotImplementedError, match="item 3"):
             solve(op, NEV, method=method, store=store)
     with pytest.raises(ValueError, match="unknown method"):
         solve(op, NEV, method="davidson", store=store)
     for kw in ({"trace": "t.jsonl"}, {"checkpoint": object()},
                {"resume": "ckpt"}):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(NotImplementedError, match="item 4"):
             solve(op, NEV, store=store, **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         eigsh(op, NEV, store=store, checkpointer=object())
 
 
@@ -176,3 +178,222 @@ def test_ritz_values_restart_by_restart_on_bf16_image():
     assert res.n_ops == ref.n_ops
     assert res.io_stats == ref.io_stats
     assert res.io_stats["host_bytes_read"] >= res.n_ops * tm16.nbytes_image()
+
+
+# ------------------------------------------------------- the SAFS page store
+def _safs_opts(root, defaults):
+    """Page-store options: the defaults (prefetch and write-behind on, a
+    64 MiB cache), or a cache of 6 pages with both threads off, where
+    the physical counters are exact after a flush."""
+    if defaults:
+        return {"root": root}
+    return {"root": root, "cache_bytes": 6 * 4096, "enable_prefetch": False,
+            "write_behind": False}
+
+
+@pytest.mark.disk
+@pytest.mark.parametrize("defaults", [False, True])
+@pytest.mark.parametrize("budget_blocks", [0, 3])
+def test_krylov_schur_on_safs_matches_reference(graph, disk_tmp,
+                                                budget_blocks, defaults):
+    """The subspace in SAFS page files in both packages, at device budgets
+    of 0 and 3 blocks: Ritz values at rtol 1e-5 and logical IOStats equal
+    at every restart. With the threads off the physical counters are
+    equal after a flush; with the defaults they stay within the logical
+    ones."""
+    _, tm, x0 = graph
+    budget = budget_blocks * tm.shape[0] * B * 4
+    ref_store = RefTieredStore(budget, backend="safs", backend_opts=_safs_opts(
+        os.path.join(disk_tmp, "ref"), defaults))
+    ref_trace = []
+    ref_eigsh(RefGraphOperator(tm, store=ref_store, impl="ref"), NEV,
+              block_size=B, store=ref_store, impl="ref", seed=0, tol=0.0,
+              max_restarts=3, callback=lambda i, th, rs: ref_trace.append(
+                  (th, ref_store.stats.as_dict())))
+    store = TieredStore(budget, backend="safs", device="cpu",
+                        backend_opts=_safs_opts(
+                            os.path.join(disk_tmp, "port"), defaults))
+    trace = []
+    eigsh(GraphOperator(tiled_from_arrays(dataclasses.asdict(tm)),
+                        store=store), NEV, block_size=B, store=store,
+          tol=0.0, max_restarts=3, x0=x0,
+          callback=lambda i, th, rs: trace.append((th,
+                                                   store.stats.as_dict())))
+    assert len(trace) == len(ref_trace) == 3
+    for (got, io), (want, ref_io) in zip(trace, ref_trace):
+        np.testing.assert_allclose(got, want, rtol=RTOL)
+        assert io == ref_io
+    ref_store.flush()
+    store.flush()
+    phys = store.backend.stats_dict()["io"]
+    ref_phys = ref_store.backend.stats_dict()["io"]
+    logical = store.stats
+    if defaults:
+        assert phys["host_bytes_read"] <= logical.host_bytes_read
+        assert phys["host_bytes_written"] <= logical.host_bytes_written
+    else:
+        assert phys == ref_phys
+        assert phys["host_bytes_read"] > 0 and phys["host_bytes_written"] > 0
+    ref_store.close()
+    store.close()
+
+
+def _bf16_image(tm, dtype):
+    port_tm = tiled_from_arrays(dataclasses.asdict(tm))
+    if dtype == "float32":
+        return tm, port_tm
+    import ml_dtypes
+    blocks = tm.blocks.astype(ml_dtypes.bfloat16)
+    return (dataclasses.replace(tm, blocks=blocks),
+            dataclasses.replace(port_tm, blocks=blocks))
+
+
+@pytest.mark.disk
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_streamed_image_matches_reference(disk_tmp, dtype):
+    """GraphOperator(stream_image=True) over a SAFS store in both packages:
+    the same spans spilled as read-only entries, matmat within 1e-6 of
+    Σ|terms| of the reference's streamed matmat and equal to the port's
+    resident one, IOStats equal, ReadOnlyError on a write to a span, and
+    delete_image leaving no entries."""
+    from repro.graphs import rmat_graph as ref_rmat_graph
+    from repro.graphs.laplacian import normalized_adjacency as ref_normalized
+    from repro_torch.core import ReadOnlyError
+    r, c, v = ref_rmat_graph(N, NNZ, seed=41, symmetric=True)
+    r, c, v = ref_normalized(N, r, c, v)
+    ref_tm, tm = _bf16_image(ref_pack_tiles(N, N, r, c, v,
+                                            block_shape=(64, 64),
+                                            min_block_nnz=4), dtype)
+    opts = {"cache_bytes": 8 * 4096}
+    ref_store = RefTieredStore(backend="safs", backend_opts={
+        "root": os.path.join(disk_tmp, "ref"), **opts})
+    store = TieredStore(backend="safs", device="cpu", backend_opts={
+        "root": os.path.join(disk_tmp, "port"), **opts})
+    ref_op = RefGraphOperator(ref_tm, store=ref_store, impl="ref",
+                              stream_image=True, image_chunk_bytes=1 << 16,
+                              name="A")
+    op = GraphOperator(tm, store=store, stream_image=True,
+                       image_chunk_bytes=1 << 16, name="A")
+    assert sorted(store.names()) == sorted(ref_store.names())
+    assert len(op._spans) > 4 and op._has_coo
+    assert store.stats.as_dict() == ref_store.stats.as_dict()
+    resident = GraphOperator(tm, device="cpu")
+    x = np.random.default_rng(3).standard_normal((op.n, B)).astype(
+        np.float32)
+    abs_a = np.abs(ref_tm.to_dense().astype(np.float64))
+    scale = abs_a @ np.abs(x.astype(np.float64))
+    for _ in range(2):
+        y = op.matmat(torch.from_numpy(x))
+        want = np.asarray(ref_op.matmat(jnp.asarray(x)))
+        assert np.all(np.abs(y.numpy() - want) <= 1e-6 * scale)
+        assert torch.equal(y, resident.matmat(torch.from_numpy(x)))
+        assert store.stats.as_dict() == ref_store.stats.as_dict()
+    span = op._spans[0].name
+    with pytest.raises(ReadOnlyError, match="read-only"):
+        store.put(span, torch.zeros(4))
+    with pytest.raises(ReadOnlyError, match="read-only"):
+        store.put("A/coo_vals", torch.zeros(4))
+    assert torch.equal(op.matmat(torch.from_numpy(x)), y)  # image unharmed
+    ref_op.matmat(jnp.asarray(x))
+    op.delete_image()
+    ref_op.delete_image()
+    assert store.names() == [] and store.backend.data_ids() == []
+    assert store.stats.as_dict() == ref_store.stats.as_dict()
+    ref_store.close()
+    store.close()
+
+
+@pytest.mark.disk
+def test_krylov_schur_on_streamed_image_matches_reference(graph, disk_tmp):
+    """The paper's full out-of-core setting in both packages: subspace and
+    matrix image in SAFS page files, Ritz values at rtol 1e-5 and
+    logical IOStats equal at every restart."""
+    _, tm, x0 = graph
+
+    def opts(sub):
+        return {"root": os.path.join(disk_tmp, sub),
+                "cache_bytes": 16 * 4096}
+
+    ref_store = RefTieredStore(2 * tm.shape[0] * B * 4, backend="safs",
+                               backend_opts=opts("ref"))
+    ref_op = RefGraphOperator(tm, store=ref_store, impl="ref",
+                              stream_image=True, image_chunk_bytes=1 << 16)
+    ref_trace = []
+    ref_eigsh(ref_op, NEV, block_size=B, store=ref_store, impl="ref",
+              seed=0, tol=0.0, max_restarts=2,
+              callback=lambda i, th, rs: ref_trace.append(
+                  (th, ref_store.stats.as_dict())))
+    store = TieredStore(2 * tm.shape[0] * B * 4, backend="safs",
+                        device="cpu", backend_opts=opts("port"))
+    op = GraphOperator(tiled_from_arrays(dataclasses.asdict(tm)),
+                       store=store, stream_image=True,
+                       image_chunk_bytes=1 << 16)
+    trace = []
+    eigsh(op, NEV, block_size=B, store=store, tol=0.0, max_restarts=2,
+          x0=x0, callback=lambda i, th, rs: trace.append(
+              (th, store.stats.as_dict())))
+    assert len(trace) == len(ref_trace) == 2
+    for (got, io), (want, ref_io) in zip(trace, ref_trace):
+        np.testing.assert_allclose(got, want, rtol=RTOL)
+        assert io == ref_io
+    ref_store.close()
+    store.close()
+
+
+# -------------------------------------------------- image formats on "SSD"
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_gio_images_cross_packages(tmp_path, writer):
+    """`save_image` in one package, `load_image` in the other: the same
+    fields, bytes and manifest; `stream_tile_rows` walks them alike."""
+    from repro.graphs import gio as ref_gio
+    from repro.graphs import rmat_graph as ref_rmat_graph
+    from repro_torch.graphs import gio
+    r, c, v = ref_rmat_graph(400, 3000, seed=1, symmetric=True)
+    ref_tm = ref_pack_tiles(400, 400, r, c, v, block_shape=(16, 16),
+                            min_block_nnz=2)
+    tm = tiled_from_arrays(dataclasses.asdict(ref_tm))
+    save, load = ((ref_gio.save_image, gio.load_image) if writer == "ref"
+                  else (gio.save_image, ref_gio.load_image))
+    save(str(tmp_path / "a"), ref_tm if writer == "ref" else tm)
+    (ref_gio if writer == "port" else gio).save_image(
+        str(tmp_path / "b"), tm if writer == "ref" else ref_tm)
+    for f in ("manifest.json",):
+        assert (tmp_path / "a" / f).read_bytes() == \
+            (tmp_path / "b" / f).read_bytes()
+    got = load(str(tmp_path / "a"))
+    for name in ("blocks", "block_cols", "row_ptr", "coo_rows", "coo_cols",
+                 "coo_vals"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(ref_tm, name))
+    assert tuple(got.shape) == ref_tm.shape
+    assert tuple(got.block_shape) == ref_tm.block_shape
+    assert list(gio.stream_tile_rows(tm)) and all(
+        a[0] == b[0] and a[3] == b[3] and np.array_equal(a[1], b[1])
+        for a, b in zip(gio.stream_tile_rows(tm),
+                        ref_gio.stream_tile_rows(ref_tm)))
+
+
+def test_scsr_codec_matches_reference():
+    """The paper's 2-byte SCSR+COO tile codec: the same bytes as the
+    reference's for random tiles (empty, single-entry rows, dense rows),
+    decoded back to the same entries."""
+    from repro.graphs import tiles as ref_tiles
+    from repro_torch.graphs import tiles
+    rng = np.random.default_rng(8)
+    for n_entries, shape in ((0, (64, 64)), (1, (8, 8)), (300, (64, 128)),
+                             (5000, (512, 512))):
+        rows = rng.integers(0, shape[0], n_entries).astype(np.int32)
+        cols = rng.integers(0, shape[1], n_entries).astype(np.int32)
+        keep = np.unique(rows.astype(np.int64) * shape[1] + cols,
+                         return_index=True)[1]
+        rows, cols = rows[keep], cols[keep]
+        buf = tiles.scsr_encode_tile(rows, cols, shape)
+        assert buf == ref_tiles.scsr_encode_tile(rows, cols, shape)
+        got, want = tiles.scsr_decode_tile(buf), \
+            ref_tiles.scsr_decode_tile(buf)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert tiles.scsr_tile_nbytes(rows) == \
+            ref_tiles.scsr_tile_nbytes(rows) == len(buf)
+    with pytest.raises(ValueError, match="exceeds SCSR max"):
+        tiles.scsr_encode_tile(rows, cols, (tiles.MAX_TILE + 1, 8))

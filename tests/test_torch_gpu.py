@@ -319,6 +319,148 @@ def test_small_solve_on_card_matches_cpu(cuda):
     assert gpu.eigenvectors.is_cuda
 
 
+def _safs_store(cuda, root, **opts):
+    from repro_torch.core import TieredStore
+    return TieredStore(backend="safs", device=cuda,
+                       backend_opts={"root": str(root), **opts})
+
+
+@pytest.mark.gpu
+def test_safs_store_round_trips_blocks_written_by_kernels(cuda, tmp_path):
+    """A block that a kernel is still writing when it is put (or demoted)
+    goes to the page file whole: the store waits for the copy to the host
+    before it checksums and splits the bytes. A tiny cache sends every
+    block to the disk and back; loads come back pinned."""
+    from repro_torch.core import HOST
+    store = _safs_store(cuda, tmp_path / "s", cache_bytes=4 * 4096)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn((2 ** 22, 4), generator=g, device=cuda)
+    want = {}
+    for i in range(4):
+        small = torch.randn((4, 4), generator=g, device=cuda)
+        y = ops.tsgemm(a, small)               # launched, not waited for
+        store.put(f"h{i}", y, tier=HOST)
+        z = ops.tsgemm(a, small, alpha=2.0)
+        store.put(f"d{i}", z)
+        store.demote(f"d{i}")                  # dirty: written to the host
+        want[f"h{i}"], want[f"d{i}"] = y, z
+    store.flush()
+    for name, t in want.items():
+        assert torch.equal(store.get(name), t), name
+    loaded = store.backend.load("h0")
+    assert loaded.is_pinned() and loaded.device.type == "cpu"
+    phys = store.backend.stats_dict()["io"]
+    assert phys["host_bytes_read"] >= sum(
+        t.numel() * 4 for t in want.values())
+    store.close()
+
+
+def _heavy_tiled(n_rows, heavy, seed, coo):
+    """A square TiledMatrix of 32x32 blocks with one block row of `heavy`
+    blocks among light and empty rows, random values, and a COO
+    remainder when `coo`."""
+    from repro_torch.graphs.tiles import TiledMatrix
+    g = np.random.default_rng(seed)
+    bm = 32
+    counts = g.integers(1, 40, n_rows)
+    counts[[0, 9, n_rows - 1]] = 0
+    counts[5] = heavy
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nb = int(ptr[-1])
+    n = n_rows * bm
+    n_coo = 5000 if coo else 0
+    return TiledMatrix(
+        shape=(n, n), block_shape=(bm, bm),
+        blocks=g.standard_normal((nb, bm, bm)).astype(np.float32),
+        block_cols=g.integers(0, n_rows, nb).astype(np.int32),
+        row_ptr=ptr,
+        coo_rows=g.integers(0, n, n_coo).astype(np.int32),
+        coo_cols=g.integers(0, n, n_coo).astype(np.int32),
+        coo_vals=g.standard_normal(n_coo).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coo", [False, True])
+def test_streamed_matmat_bit_identical_to_resident(cuda, tmp_path, coo):
+    """The streamed image runs each span with a plan built with the whole
+    image's chunk, so the heavy row splits into the same chunks and a
+    streamed matmat equals the resident one bit for bit, with one SpMM
+    launch per non-empty span. With a COO remainder the two are equal
+    bit for bit under deterministic algorithms (`index_add_` then sums
+    in a fixed order). (bf16 streamed images are held to the reference
+    on the CPU: numpy's bf16 type is not on the card's machine.)"""
+    from repro_torch.core import GraphOperator
+    tm = _heavy_tiled(48, 3200, seed=22, coo=coo)
+    store = _safs_store(cuda, tmp_path / "img")
+    resident = GraphOperator(tm, device=cuda)
+    assert resident._plan.n_partials > 0           # the heavy row splits
+    streamed = GraphOperator(tm, store=store, stream_image=True,
+                             image_chunk_bytes=64 << 10)
+    spans = sum(1 for c in streamed._spans if c.n_blocks)
+    assert len(streamed._spans) == spans > 2
+    assert any(c.plan.n_partials for c in streamed._spans)
+    x = torch.randn((tm.shape[0], 4), device=cuda)
+    before = spmm_tile.LAUNCHES
+    torch.use_deterministic_algorithms(coo)
+    try:
+        y_s = streamed.matmat(x)
+        y_r = resident.matmat(x)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert spmm_tile.LAUNCHES - before == spans + 1
+    assert torch.equal(y_s, y_r)
+    streamed.delete_image()
+    assert store.names() == []
+    store.close()
+
+
+@pytest.mark.gpu
+def test_page_path_threads_make_no_cuda_call(cuda, tmp_path):
+    """A stream of gets from a CUDA SAFS store under
+    `torch.cuda.set_sync_debug_mode("error")`: the readahead workers and
+    the write-behind drain thread make no call into torch (a profile hook
+    on the threads they start sees none), and neither the gets nor the
+    fills synchronize the card."""
+    import threading
+    from repro_torch.core import HOST
+    seen = []
+
+    def hook(frame, event, arg):
+        if event == "call" and "torch" in frame.f_code.co_filename.split(
+                "/"):
+            seen.append((threading.current_thread().name,
+                         frame.f_code.co_name))
+        elif event == "c_call" and (getattr(arg, "__module__", "") or
+                                    "").startswith("torch"):
+            seen.append((threading.current_thread().name, arg.__name__))
+
+    threading.setprofile(hook)
+    try:
+        store = _safs_store(cuda, tmp_path / "thr", cache_bytes=64 * 4096)
+    finally:
+        threading.setprofile(None)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    blocks = {f"b{i}": torch.randn((20000, 4), generator=g, device=cuda)
+              for i in range(12)}
+    for name, t in blocks.items():
+        store.put(name, t, tier=HOST)
+    store.flush()
+    torch.cuda.synchronize()
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            got += list(store.stream(list(blocks), readahead=4))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for t, name in zip(got, list(blocks) * 3):
+        assert torch.equal(t, blocks[name])
+    st = store.backend.stats_dict()["prefetch"]
+    assert st["files_prefetched"] > 0 and st["read_errors"] == 0
+    store.close()
+    assert [s for s in seen if s[0].startswith("safs-")] == []
+
+
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -8}
 
 

@@ -31,7 +31,11 @@ def test_import_loads_no_jax_and_no_reference_module():
     for m in ("repro_torch.kernels.ops", "repro_torch.convert",
               "repro_torch.kernels.flashattn", "repro_torch.configs",
               "repro_torch.models", "repro_torch.models.transformer",
-              "repro_torch.models.steps"):
+              "repro_torch.models.steps", "repro_torch.safs.faults",
+              "repro_torch.safs.pagefile", "repro_torch.safs.cache",
+              "repro_torch.safs.prefetch", "repro_torch.safs.backend",
+              "repro_torch.safs.scrub", "repro_torch.graphs.gio",
+              "repro_torch.examples", "repro_torch.examples.ooc_lanczos"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -77,6 +81,8 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TieredStore()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TieredStore(backend="safs", backend_opts={"root": os.devnull})
     r = np.array([0, 1], np.int32)
     c = np.array([1, 0], np.int32)
     v = np.ones(2, np.float32)
@@ -129,3 +135,19 @@ def test_model_entry_points_without_device_raise_without_cuda(monkeypatch):
                                           torch.zeros((1, 1), dtype=torch.int32),
                                           4)
     assert logits.device.type == out.device.type == "cpu"
+
+
+def test_ooc_lanczos_example_runs_on_the_cpu(tmp_path, capsys):
+    """`python -m repro_torch.examples.ooc_lanczos --device cpu` at a small
+    size: SAFS and RAM spectra agree, and what is not ported raises."""
+    from repro_torch.examples import ooc_lanczos
+    ooc_lanczos.main(["--n", "600", "--nnz", "5000", "--nev", "4",
+                      "--device", "cpu", "--root", str(tmp_path / "p"),
+                      "--trace", str(tmp_path / "t.jsonl")])
+    out = capsys.readouterr().out
+    assert "safs backend matches ram backend to rtol 1e-5" in out
+    assert "physical disk I/O" in out and (tmp_path / "t.jsonl").exists()
+    with pytest.raises(NotImplementedError, match="item 3"):
+        ooc_lanczos.main(["--solver", "lanczos", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 4"):
+        ooc_lanczos.main(["--checkpoint", str(tmp_path), "--device", "cpu"])

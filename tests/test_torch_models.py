@@ -105,7 +105,7 @@ def test_configs_match_reference():
             (want.hd, want.n_super, want.n_remainder)
     assert configs.get("yi-9b").param_count() == 8_829_009_920
     for name in ("qwen2-1.5b", "mamba2-780m", "no-such-model"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             configs.get(name)
 
 
@@ -113,7 +113,7 @@ def test_unported_layers_raise():
     _, cfg = _cfgs()
     for bad in (dict(pattern=("swa",)), dict(pattern=("attn", "ssm")),
                 dict(n_experts=4, moe_d_ff=96), dict(frontend="audio")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             tf.init_model(0, dataclasses.replace(cfg, **bad), device="cpu")
 
 
