@@ -74,7 +74,44 @@ otherwise. Phases, each of which fails the run:
  13. serve breakdown: one profiled prefill and 4 profiled decode steps
      (device time by kind, idle share, the largest host ops).
 
-Then one JSON line of kernels, the card line, and the final result line.
+The rest of the solver family, run after 9 (14-18) and after 10 (19);
+every solve on a fresh RAM-tier store with the launch counters zeroed
+just before and read just after, each solver kernel launched at least
+once, and each width row's launches taken from the solve named here:
+ 14. widths (A): SpMM at k = 1, 2, 8 over the rmat-1M image, gram at
+     (n, b)ᵀ(n, b) and tsgemm at (n, b)·(b, b) + C0 for b = 2, 8, and gram
+     at LOBPCG's (n, 24)ᵀ(n, 24), n = 2^20: against the plain version,
+     bit-identical run to run, one device kernel per call (gram,
+     tsgemm), timed as in 4 beside the library call and the bound;
+ 15. Lanczos (B): `solve(op, 8, method="lanczos", block_size=4)`; each
+     Ritz value within its residual bound of one of phase 5's (less that
+     one's bound); its IOStats beside Krylov–Schur's;
+ 16. LOBPCG (C): `solve(op, 8, method="lobpcg", tol=1e-5,
+     max_iters=300)`: passes 3·it + 1 and pass bytes (10 + 14·(it − 1) +
+     2)·n·b·4 exactly, less 4·n·b·4 per iteration whose P deflated
+     (printed); converged or not (printed); its top eigenvalues within
+     their true residuals of phase 5's positive ones (less their bounds);
+     bytes per converged pair beside Krylov–Schur's; SpMM at k = 8, gram
+     at 8 and 24 columns, tsgemm at (8, 8);
+ 17. Chebyshev (D): `estimate_spectral_range` (SpMM at k = 1), a degree-10
+     `ChebyshevFilterOperator` damping [lo, half the smallest of phase
+     5's positive eigenvalues], Krylov–Schur on it for that many pairs:
+     untransformed eigenvalues at rtol 1e-5 of phase 5's, true residuals
+     ≤ 1e-4; one profiled application with the COO side path's share of
+     device time (its kernels bracketed by CUDA events);
+ 18. SVD (E), after the symmetric image is freed: `rmat_graph(2**20,
+     2**23, seed=1, symmetric=False)`, A and Aᵀ packed as in 3 (0/1
+     entries), `NormalOperator.from_tiles`, `solve(a, 4, method="svd",
+     block_size=2, at_op=at)`: converged, σ finite and descending,
+     ‖A v − u σ‖/σ ≤ 1e-3 with v = Aᵀu/σ; SpMM, gram and tsgemm at 2;
+ 19. shift-invert (F), on the resident 2^16 graph of 10:
+     `ShiftInvertOperator(op, σ, inner_solver="cg")` with σ 0.05 below
+     `estimate_spectral_range`'s low end, `which="LM"`: untransformed
+     eigenvalues at rtol 1e-5 of a `which="SA"` Krylov–Schur solve's, true
+     residuals ≤ 1e-4, inner CG iterations printed.
+
+Then one JSON line of kernels (the four PR-15 rows, the eight width rows
+of 14, flash attention), the card line, and the final result line.
 """
 from __future__ import annotations
 
@@ -109,6 +146,18 @@ REPS = 10
 # phase near a minute on the card (every matmat pages the whole image
 # through the SAFS page path, 4 KiB at a time)
 STREAM_LOG2 = 16
+
+# the rest of the solver family (phases 14-19): the widths it gives the
+# kernels, LOBPCG's tolerance and iteration cap, the Chebyshev filter's
+# degree, the SVD's singular triplets and block, and shift-invert's gap
+# below the estimated spectrum and inner CG (float32 CG's recursive
+# residual reaches 1e-7; the Rayleigh quotients of the untransform are
+# accurate to its square)
+FAMILY_SPMM_K, FAMILY_B = (1, 2, 8), (2, 8)
+LOBPCG_TOL, LOBPCG_MAX = 1e-5, 300
+CHEB_DEGREE = 10
+SVD_NSV, SVD_BLOCK, SVD_RESID_TOL = 4, 2, 1e-3
+SI_GAP, SI_CG_TOL, SI_CG_MAXITER = 0.05, 1e-7, 400
 
 # flash attention at yi-9b's prefill shapes (B, H, Hkv, S, d), bf16
 FLASH_SERVE = (4, 32, 4, 2048, 128)
@@ -240,30 +289,43 @@ def make_graph(n_log2: int, nnz_log2: int):
 
 def kernels_per_call(torch, fn, calls: int = 4) -> float:
     """Device kernels that one call of fn launches, counted by the
-    profiler over `calls` calls (copies and fills excluded)."""
+    profiler over `calls` calls (copies and fills excluded). A fill opens
+    and closes the window: after earlier profiler sessions the first
+    kernel of a window can go unrecorded (seen in this script's runs,
+    where the same calls counted alone give one kernel per call), and
+    the fill takes that place."""
     from torch.profiler import ProfilerActivity, profile
     fn()
+    word = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        word.fill_(1.0)
         for _ in range(calls):
             fn()
+        word.fill_(1.0)
         torch.cuda.synchronize()
     n = sum(evt.count for evt in prof.key_averages()
             if "CUDA" in str(getattr(evt, "device_type", ""))
-            and not evt.key.startswith(("Memcpy", "Memset")))
+            and not evt.key.startswith(("Memcpy", "Memset"))
+            and "FillFunctor" not in evt.key)
     return n / calls
 
 
-def spmm_phase(torch, op, timer, x):
+def spmm_phase(torch, op, timer, x, width_row: bool = False):
     """The SpMM kernel over the operator's image, float32 or bf16, at the
     solve's shapes against its plain version (float32 arithmetic on the
-    same blocks)."""
+    same blocks). A `width_row` is the float32 kernel at X's width k
+    (`spmm_blocksparse_k<k>`), counted by LAUNCHES_BY_K, without the plan
+    and heaviest-item report."""
     from repro_torch.kernels import ops, spmm_tile
     blocks, cols, ptr, plan = op._blocks, op._block_cols, op._row_ptr, \
         op._plan
     n = op.n
+    k = x.shape[1]
     bf16 = blocks.dtype == torch.bfloat16
     name = "spmm_blocksparse_bf16" if bf16 else "spmm_blocksparse"
+    if width_row:
+        name = f"spmm_blocksparse_k{k}"
     y = ops.spmm_blocks(blocks, cols, ptr, x, plan=plan)
     if not torch.equal(y, ops.spmm_blocks(blocks, cols, ptr, x, plan=plan)):
         fail(f"{name} is not bit-identical from run to run")
@@ -281,7 +343,7 @@ def spmm_phase(torch, op, timer, x):
     nb, bm, bn = blocks.shape
     nbytes = (blocks.numel() * blocks.element_size() + cols.numel() * 4
               + ptr.numel() * 4 + x.numel() * 4 + y.numel() * 4)
-    bms, by = bound_ms(nbytes, 2 * nb * bm * bn * BLOCK_SIZE)
+    bms, by = bound_ms(nbytes, 2 * nb * bm * bn * k)
     lib_ms, lib_note, bsr = None, "torch.sparse BSR @ dense", None
     try:
         with warnings.catch_warnings():   # "BSR support is in beta"
@@ -301,6 +363,20 @@ def spmm_phase(torch, op, timer, x):
                 lib_note += (f"; with bf16 X also unavailable: "
                              f"{str(e2).splitlines()[0][:120]}")
     del bsr
+    if width_row:
+        log(f"kernel {name}: blocks {tuple(blocks.shape)} float32 x "
+            f"{tuple(x.shape)} | rel err {err:.3e} (tol {KERNEL_TOL:g} of "
+            f"Σ|terms|), max abs err {abs_err:.3e}, bit-identical run to "
+            f"run | {ms:.3f} ms, plain {plain:.3f} ms, library {lib_ms} ms "
+            f"({lib_note}), bound {bms:.3f} ms ({by})")
+        if not err <= KERNEL_TOL:
+            fail(f"{name} disagrees with its plain version: {err}")
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/spmm_tile.cu",
+                "replaces": "src/repro/kernels/spmm_tile.py:50",
+                "count": lambda: spmm_tile.LAUNCHES_BY_K.get(k, 0),
+                "max_abs_err": abs_err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
     # the heaviest work item alone (the plan's first), writing Y directly:
     # what is left of the skew that one block row used to set
     row, lo, hi, _ = plan.items[0].tolist()
@@ -439,6 +515,21 @@ def zero_counters() -> None:
     for mod in (spmm_tile, gram, tsgemm, flashattn):
         mod.LAUNCHES = 0
     spmm_tile.LAUNCHES_BF16 = 0
+    spmm_tile.LAUNCHES_BY_K.clear()
+    gram.LAUNCHES_BY_SHAPE.clear()
+    tsgemm.LAUNCHES_BY_SHAPE.clear()
+
+
+def launches_by_width() -> dict:
+    """The solver kernels' launches since the counters were zeroed, by
+    width: SpMM by X's k, gram by G's and tsgemm by B's shape."""
+    from repro_torch.kernels import gram, spmm_tile, tsgemm
+    return {"spmm_blocksparse": {f"k{k}": v for k, v in
+                                 sorted(spmm_tile.LAUNCHES_BY_K.items())},
+            "gram": {f"{m}x{b}": v for (m, b), v in
+                     sorted(gram.LAUNCHES_BY_SHAPE.items())},
+            "tsgemm": {f"{m}x{b}": v for (m, b), v in
+                       sorted(tsgemm.LAUNCHES_BY_SHAPE.items())}}
 
 
 def read_counters(rows) -> dict:
@@ -581,9 +672,10 @@ def safs_subspace_phase(torch, op, rows, res_ram, wall_ram) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def safs_stream_phase(torch, dev, rows) -> None:
+def safs_stream_phase(torch, dev, rows):
     """The image itself in SAFS page files: a streamed GraphOperator
-    against the resident one, then the solve over it."""
+    against the resident one, then the solve over it. Returns the
+    TiledMatrix (phase 19 solves it again, resident)."""
     from repro_torch.core import GraphOperator, TieredStore
     from repro_torch.obs import Tracer, tracing
     tm, _ = make_graph(STREAM_LOG2, STREAM_LOG2 + 3)
@@ -655,6 +747,7 @@ def safs_stream_phase(torch, dev, rows) -> None:
         store.close()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return tm
 
 
 def weyl_check(torch, op, res32, resid32, res16, resid16) -> None:
@@ -749,6 +842,398 @@ def breakdown(torch, op, label: str, restarts: int = 3) -> None:
         f"{json.dumps({k: round(v, 3) for k, v in sorted(host.items())})}")
     if busy <= 0:
         log("breakdown: the profiler reported no device time (not measured)")
+
+
+# ------------------------------------------------------------------ family
+
+def dense_width_row(torch, timer, dev, kind: str, m: int, b: int,
+                    n: int = 2 ** 20):
+    """gram (n, m)ᵀ(n, b) or tsgemm (n, m)·(m, b) + C0 at a width the rest
+    of the solver family gives it, against its plain version: one device
+    kernel per call, bit-identical over three calls, timed flushed and
+    clean beside the library call and the bound."""
+    from repro_torch.kernels import gram as gram_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import tsgemm as tsgemm_mod
+    gen = torch.Generator(device=dev).manual_seed(100 + 10 * m + b)
+    a = torch.randn((n, m), generator=gen, device=dev)
+    if kind == "gram":
+        mod, lib_name = gram_mod, "torch.matmul(a.T, b)"
+        shape = f"({n}, {m})ᵀ({n}, {b})"
+        rhs = torch.randn((n, b), generator=gen, device=dev)
+        scale = a.abs().T @ rhs.abs()
+        nbytes, flops = (n * m + n * b + m * b) * 4, 2 * n * m * b
+
+        def call(impl="auto"):
+            return ops.gram(a, rhs, impl=impl)
+
+        def lib_call():
+            return torch.matmul(a.T, rhs)
+    else:
+        mod, lib_name = tsgemm_mod, "torch.addmm"
+        shape = f"({n}, {m})·({m}, {b}) + C0"
+        small = torch.randn((m, b), generator=gen, device=dev)
+        c0 = torch.randn((n, b), generator=gen, device=dev)
+        scale = a.abs() @ small.abs() + c0.abs()
+        nbytes = (n * m + m * b + 2 * n * b) * 4
+        flops = 2 * n * m * b + 2 * n * b
+
+        def call(impl="auto"):
+            return ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=c0,
+                              impl=impl)
+
+        def lib_call():
+            return torch.addmm(c0, a, small, beta=1.0, alpha=-1.0)
+    name = f"{kind}_b{b}"
+    got = call()
+    if not all(torch.equal(got, call()) for _ in range(2)):
+        fail(f"{name} is not bit-identical from run to run")
+    want = call("ref")
+    err = rel_err(got, want, scale)
+    abs_err = float((got - want).abs().max())
+    del want, scale
+    per_call = kernels_per_call(torch, call)
+    ms = timer.ms(call)
+    clean_ms = timer.ms(call, clean=True)
+    plain = timer.ms(lambda: call("ref"))
+    lib_ms = timer.ms(lib_call)
+    bms, by = bound_ms(nbytes, flops)
+    log(f"kernel {name}: {shape} (the generic kernel) | rel err {err:.3e} "
+        f"(tol {KERNEL_TOL:g} of Σ|terms|), max abs err {abs_err:.3e}, "
+        f"bit-identical run to run | device kernels per call {per_call:g} | "
+        f"{ms:.4f} ms ({clean_ms:.4f} with L2 clean), plain {plain:.4f} ms, "
+        f"library {lib_name} {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}) = "
+        f"{bms / clean_ms:.2f} of the clean time")
+    if not err <= KERNEL_TOL:
+        fail(f"{name} disagrees with its plain version: {err}")
+    if per_call != 1:
+        fail(f"{name} launched {per_call} device kernels per call, not 1")
+    src = "gram.cu" if kind == "gram" else "tsgemm.cu"
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": ("src/repro/kernels/gram.py:34" if kind == "gram"
+                         else "src/repro/kernels/tsgemm.py:28"),
+            "count": lambda: mod.LAUNCHES_BY_SHAPE.get((m, b), 0),
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+def width_phase(torch, op, timer):
+    """Phase A: the kernels at the widths the rest of the solver family
+    gives them (SpMM k = 1, 2, 8 over the rmat-1M image; gram and tsgemm
+    at b = 2 and 8, and gram at LOBPCG's 24-column G and H), before any
+    solve uses them."""
+    dev = op.device
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = [spmm_phase(torch, op, timer, torch.randn(
+        (op.n, k), generator=gen, device=dev), width_row=True)
+        for k in FAMILY_SPMM_K]
+    for b in FAMILY_B:
+        rows.append(dense_width_row(torch, timer, dev, "gram", b, b))
+        rows.append(dense_width_row(torch, timer, dev, "tsgemm", b, b))
+    rows.append(dense_width_row(torch, timer, dev, "gram", 3 * NEV, 3 * NEV))
+    torch.cuda.synchronize()
+    return rows
+
+
+def counted_solve(torch, op, label: str, *args, **kw):
+    """solve(*args, **kw) on a fresh RAM-tier store, the launch counters
+    zeroed just before and read just after. Returns the result, its wall
+    seconds and the launches by width."""
+    from repro_torch.core import TieredStore, solve
+    store = TieredStore(device=op.device)
+    for o in (op, getattr(op, "inner", None), getattr(op, "a", None),
+              getattr(op, "at", None)):
+        if o is not None and hasattr(o, "store"):
+            o.store = store
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(*args, store=store, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    widths = launches_by_width()
+    log(f"{label}: solve wall {wall:.3f} s | converged {res.converged} | "
+        f"restarts/iterations {res.n_restarts} | operator applications "
+        f"{res.n_ops} | launches by width {json.dumps(widths)}")
+    log(f"{label}: eigenvalues {np.array2string(res.eigenvalues, precision=8)}"
+        f" | residuals {np.array2string(res.residuals, precision=3)}")
+    log(f"{label}: IOStats {json.dumps(res.io_stats)}")
+    for kernel, by in widths.items():
+        if not sum(by.values()):
+            fail(f"{label}: kernel {kernel} was not launched")
+    return res, wall, widths
+
+
+def near(theta, ref, slack) -> np.ndarray:
+    """For each θ_i, min_j |θ_i − ref_j| − slack_j: ≤ the allowance of θ_i
+    where θ_i lies within it of some ref_j (repeated eigenvalues, ±1 many
+    times over here, make a one-to-one order meaningless)."""
+    return (np.abs(np.asarray(theta)[:, None] - np.asarray(ref)[None, :])
+            - np.asarray(slack)[None, :]).min(axis=1)
+
+
+def top_pairs(res_ks) -> tuple[np.ndarray, np.ndarray]:
+    """Phase 5's positive eigenvalues (its "LM" set's top end), descending,
+    with their residual bounds: what LOBPCG ("LA") and the Chebyshev
+    filter find."""
+    th, rs = res_ks.eigenvalues, res_ks.residuals
+    order = np.argsort(-th)
+    keep = order[th[order] > 0]
+    if keep.size == 0:
+        fail("phase 5 found no positive eigenvalue to compare with")
+    return th[keep], rs[keep]
+
+
+def lanczos_phase(torch, op, res_ks) -> dict:
+    """Phase B: block Lanczos (no restarts) on the rmat-1M image."""
+    from repro_torch.core import true_residuals
+    res, wall, widths = counted_solve(
+        torch, op, "lanczos", op, NEV, method="lanczos",
+        block_size=BLOCK_SIZE)
+    resid = true_residuals(op, res.eigenvectors, res.eigenvalues)
+    gap = near(res.eigenvalues, res_ks.eigenvalues, res_ks.residuals)
+    ks_io = res_ks.io_stats
+    log(f"lanczos: {res.n_ops} expansions (m = {res.m_subspace}) | true "
+        f"residuals {np.array2string(resid, precision=3)} | distance to "
+        f"phase 5's nearest eigenvalue less its bound "
+        f"{np.array2string(gap, precision=3)} (limit: the Lanczos bound) | "
+        f"passes {res.io_stats['passes']} vs Krylov–Schur's "
+        f"{ks_io['passes']}, pass bytes {res.io_stats['pass_bytes_read']} vs "
+        f"{ks_io['pass_bytes_read']}, host bytes read "
+        f"{res.io_stats['host_bytes_read']} vs {ks_io['host_bytes_read']}, "
+        f"written {res.io_stats['host_bytes_written']} vs "
+        f"{ks_io['host_bytes_written']}")
+    if not np.all(gap <= res.residuals):
+        fail(f"Lanczos Ritz values beyond the residual bounds of phase 5's: "
+             f"{gap} > {res.residuals}")
+    return widths
+
+
+def lobpcg_phase(torch, op, res_ks) -> dict:
+    """Phase C: LOBPCG at nev 8 (b = 8) on the rmat-1M image, with its pass
+    identity (lobpcg.py's docstring) checked to the byte."""
+    from repro_torch.core import true_residuals
+    res, wall, widths = counted_solve(
+        torch, op, "lobpcg", op, NEV, method="lobpcg", tol=LOBPCG_TOL,
+        max_iters=LOBPCG_MAX)
+    it, io = res.n_restarts, res.io_stats
+    blk = op.n * NEV * 4
+    if io["passes"] == 3 * it + 1:           # stopped after a residual pass
+        how, want = "stopped at iteration", (10 + 14 * (it - 1) + 2) * blk
+    elif io["passes"] == 3 * (it + 1):       # ran out of iterations
+        how, want = "ran all iterations to", (10 + 14 * it) * blk
+    else:
+        fail(f"lobpcg made {io['passes']} passes at iteration {it}: neither "
+             f"3·it + 1 nor 3·(it + 1)")
+    short = want - io["pass_bytes_read"]
+    if short < 0 or short % (4 * blk):
+        fail(f"lobpcg pass bytes {io['pass_bytes_read']} do not follow the "
+             f"identity ({want}, less 4·n·b·4 per deflated P)")
+    resid = true_residuals(op, res.eigenvectors, res.eigenvalues)
+    top, top_res = top_pairs(res_ks)
+    th = np.sort(res.eigenvalues)[::-1][:top.size]
+    rs = (resid * np.maximum(1.0, np.abs(res.eigenvalues)))[
+        np.argsort(-res.eigenvalues)][:top.size]
+    gap = np.abs(th - top[:th.size]) - top_res[:th.size]
+    pair_bytes = (io["host_bytes_read"] + io["host_bytes_written"]) / NEV
+    ks_io = res_ks.io_stats
+    ks_pair = (ks_io["host_bytes_read"] + ks_io["host_bytes_written"]) / NEV
+    log(f"lobpcg: converged {res.converged} | {how} {it}: passes "
+        f"{io['passes']} = 3·{it} + {io['passes'] - 3 * it}, pass bytes "
+        f"{io['pass_bytes_read']} = identity {want} less "
+        f"{short // (4 * blk)} deflated P | matmats {res.n_ops} | true "
+        f"residuals ‖Ax−θx‖/max(1,|θ|) {np.array2string(resid, precision=3)}"
+        f" | top {th.size} against phase 5's positive eigenvalues: distance "
+        f"less phase 5's bound {np.array2string(gap, precision=3)} (limit: "
+        f"the true residual) | bytes per converged pair {pair_bytes:.4e} "
+        f"against Krylov–Schur's {ks_pair:.4e} = {pair_bytes / ks_pair:.3f}"
+        f" (0.65 in the reference's CPU smoke)")
+    if not (np.all(np.isfinite(res.eigenvalues))
+            and bool(torch.isfinite(res.eigenvectors).all())):
+        fail("lobpcg returned values that are not finite")
+    if not np.all(gap <= rs):
+        fail(f"lobpcg's top eigenvalues beyond their residuals of phase 5's:"
+             f" {gap} > {rs}")
+    return widths
+
+
+def chebyshev_phase(torch, op, res_ks) -> dict:
+    """Phase D: estimate_spectral_range (SpMM at k = 1), then a degree-10
+    Chebyshev filter damping [lo, ½·(smallest wanted eigenvalue)], then
+    Krylov–Schur on the filter for phase 5's positive eigenvalues."""
+    from repro_torch.core import (ChebyshevFilterOperator,
+                                  estimate_spectral_range)
+    from repro_torch.kernels import spmm_tile
+    top, _ = top_pairs(res_ks)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lo, hi = estimate_spectral_range(op)
+    torch.cuda.synchronize()
+    k1 = spmm_tile.LAUNCHES_BY_K.get(1, 0)
+    log(f"chebyshev: estimate_spectral_range [{lo:.6f}, {hi:.6f}] in "
+        f"{time.perf_counter() - t0:.3f} s, {k1} SpMM launches at k = 1")
+    if not (k1 > 0 and lo < res_ks.eigenvalues.min()
+            and hi > res_ks.eigenvalues.max()):
+        fail(f"the spectral range [{lo}, {hi}] does not bracket phase 5's "
+             f"eigenvalues, or SpMM at k = 1 never launched ({k1})")
+    cut = 0.5 * float(top.min())
+    ch = ChebyshevFilterOperator(op, (lo, cut), degree=CHEB_DEGREE)
+    res, wall, widths = counted_solve(
+        torch, op, "chebyshev", ch, top.size, method="krylov_schur",
+        block_size=BLOCK_SIZE, num_blocks=NUM_BLOCKS, tol=TOL,
+        max_iters=MAX_ITERS)
+    widths["spmm_blocksparse"]["k1"] = k1
+    got = np.sort(res.eigenvalues)[::-1]
+    rel = np.abs(got - top) / np.abs(top)
+    scaled = res.residuals / np.maximum(1.0, np.abs(res.eigenvalues))
+    log(f"chebyshev: damped [{lo:.6f}, {cut:.6f}], degree {CHEB_DEGREE} | "
+        f"{res.n_ops} filter applications = {res.n_ops * CHEB_DEGREE} "
+        f"matmats, {widths['spmm_blocksparse'].get(f'k{BLOCK_SIZE}', 0)} "
+        f"SpMM launches at k = {BLOCK_SIZE} | untransformed eigenvalues "
+        f"against phase 5's: rel err {np.array2string(rel, precision=3)} "
+        f"(tol 1e-5) | true residuals of A {np.array2string(scaled)}")
+    if not res.converged:
+        fail("the Chebyshev-filtered solve did not converge")
+    if not np.all(rel <= 1e-5):
+        fail(f"Chebyshev eigenvalues disagree with phase 5's: {rel}")
+    if not np.all(scaled <= RESID_TOL):
+        fail(f"Chebyshev true residuals above {RESID_TOL}: {scaled}")
+    coo_share(torch, op, ch)
+    return widths
+
+
+def coo_share(torch, op, ch) -> None:
+    """One profiled application of the filter: device time by kind, and
+    the COO side path's share of it, its kernels bracketed by CUDA events
+    on the stream (a wrapper around the operator's coo_spmm_ref)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import operator as operator_mod
+    x = torch.randn((op.n, BLOCK_SIZE), device=op.device,
+                    generator=torch.Generator(device=op.device).manual_seed(3))
+    ch.matmat(x)
+    plain = operator_mod.coo_spmm_ref
+    marks = []
+
+    def bracketed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain(*args)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    operator_mod.coo_spmm_ref = bracketed
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ch.matmat(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        operator_mod.coo_spmm_ref = plain
+    cats, others = _device_ms_by_kind(prof, {
+        "spmm_blocksparse": ("spmm_blocksparse",)})
+    busy = sum(cats.values())
+    coo = sum(s.elapsed_time(e) for s, e in marks)
+    if busy <= 0:
+        log("chebyshev breakdown: the profiler reported no device time "
+            "(not measured)")
+        busy = float("nan")
+    log(f"chebyshev breakdown (one profiled application, {len(marks)} "
+        f"matmats): wall {wall:.2f} ms | device busy {busy:.2f} ms, idle "
+        f"share {1 - busy / wall:.3f} | spmm_blocksparse "
+        f"{cats['spmm_blocksparse']:.2f} ms, other {cats['other']:.2f} ms | "
+        f"COO side path (event-bracketed) {coo:.2f} ms = "
+        f"{coo / busy:.3f} of device busy, {coo / wall:.3f} of the wall | "
+        f"largest other kernels (ms, count, name): "
+        + "; ".join(f"{ms:.3f}, {cnt}, {name}" for ms, cnt, name in others))
+
+
+def svd_phase(torch, dev) -> dict:
+    """Phase E: the SVD of the directed 2^20-vertex R-MAT graph through
+    NormalOperator.from_tiles and solve(method="svd")."""
+    from repro_torch.core import NormalOperator
+    from repro_torch.graphs import pack_tiles, rmat_graph
+    n = 2 ** N_LOG2
+    t0 = time.perf_counter()
+    r, c, v = rmat_graph(n, 2 ** NNZ_LOG2, seed=GRAPH_SEED, symmetric=False)
+    tms = {}
+    for tag, (rr, cc) in (("A", (r, c)), ("Aᵀ", (c, r))):
+        tm = pack_tiles(n, n, rr, cc, v, block_shape=BLOCK,
+                        min_block_nnz=MIN_BLOCK_NNZ)
+        tms[tag] = tm
+        log(f"svd: {tag} image {tm.nblocks} blocks "
+            f"({tm.blocks.nbytes / 1e9:.2f} GB), COO {tm.coo_vals.size} "
+            f"entries = {tm.coo_vals.size / r.size:.3f} of nnz {r.size}")
+    log(f"svd: directed graph generated and packed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    nop = NormalOperator.from_tiles(tms["A"], tms["Aᵀ"], device=dev)
+    del tms
+    gc.collect()
+    res, wall, widths = counted_solve(
+        torch, nop, "svd", nop.a, SVD_NSV, method="svd",
+        block_size=SVD_BLOCK, at_op=nop.at, tol=TOL, max_iters=MAX_ITERS)
+    sigma, u = res.eigenvalues, res.eigenvectors
+    s_t = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
+    v_rec = nop.at.matmat(u) / s_t[None, :]          # v = Aᵀu / σ
+    err = (torch.linalg.norm(nop.a.matmat(v_rec) - u * s_t[None, :], dim=0)
+           / s_t).cpu().numpy()
+    log(f"svd: σ {np.array2string(sigma, precision=6)} | ‖A v − u σ‖/σ with"
+        f" v = Aᵀu/σ {np.array2string(err, precision=3)} (limit "
+        f"{SVD_RESID_TOL:g}) | Gram applications {res.n_ops} (two SpMMs "
+        f"each)")
+    if not res.converged:
+        fail("the SVD did not converge")
+    if not (np.all(np.isfinite(sigma)) and np.all(np.diff(sigma) <= 0)
+            and bool(torch.isfinite(u).all())
+            and tuple(u.shape) == (n, SVD_NSV)):
+        fail(f"singular values {sigma} or vectors {tuple(u.shape)} not "
+             f"finite and descending")
+    if not np.all(err <= SVD_RESID_TOL):
+        fail(f"‖A v − u σ‖/σ above {SVD_RESID_TOL}: {err}")
+    return widths
+
+
+def shift_invert_phase(torch, dev, tm) -> dict:
+    """Phase F: shift-invert (inner CG) on the resident 2^16 graph of phase
+    10, σ below estimate_spectral_range's low end, against a "SA"
+    Krylov–Schur solve of the same graph."""
+    from repro_torch.core import (GraphOperator, ShiftInvertOperator,
+                                  estimate_spectral_range)
+    op = GraphOperator(tm, device=dev)
+    ref, _, _ = counted_solve(
+        torch, op, "shift-invert reference (SA)", op, NEV,
+        method="krylov_schur", which="SA", block_size=BLOCK_SIZE,
+        num_blocks=NUM_BLOCKS, tol=TOL, max_iters=MAX_ITERS)
+    lo, _ = estimate_spectral_range(op)
+    sigma = lo - SI_GAP
+    si = ShiftInvertOperator(op, sigma, inner_solver="cg", cg_tol=SI_CG_TOL,
+                             cg_maxiter=SI_CG_MAXITER)
+    res, wall, widths = counted_solve(
+        torch, op, "shift-invert", si, NEV, method="krylov_schur",
+        which="LM", block_size=BLOCK_SIZE, num_blocks=NUM_BLOCKS, tol=TOL,
+        max_iters=MAX_ITERS)
+    got, want = np.sort(res.eigenvalues), np.sort(ref.eigenvalues)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    scaled = res.residuals / np.maximum(1.0, np.abs(res.eigenvalues))
+    log(f"shift-invert: σ = {sigma:.6f} (range low end {lo:.6f}) | "
+        f"{res.n_ops} outer applications, {si.n_inner_iters} inner CG "
+        f"iterations ({si.n_inner_iters / max(res.n_ops, 1):.1f} per "
+        f"application) | untransformed eigenvalues against the SA solve's: "
+        f"rel err {np.array2string(rel, precision=3)} (tol 1e-5) | true "
+        f"residuals of A {np.array2string(scaled)}")
+    if not (res.converged and ref.converged):
+        fail("a shift-invert phase solve did not converge")
+    if not np.all(rel <= 1e-5):
+        fail(f"shift-invert eigenvalues disagree with the SA solve's: {rel}")
+    if not np.all(scaled <= RESID_TOL):
+        fail(f"shift-invert true residuals above {RESID_TOL}: {scaled}")
+    return widths
 
 
 def flash_phase(torch, timer, dev):
@@ -1056,10 +1541,40 @@ def main() -> None:
     breakdown(torch, op16, "bf16")
     del op16
     safs_subspace_phase(torch, op, rows, res32, wall32)
+
+    # the rest of the solver family on the same image (phases 14-17)
+    t_family = time.perf_counter()
+    family = width_phase(torch, op, timer)
+    rows += family
+    widths = {"lanczos": lanczos_phase(torch, op, res32),
+              "lobpcg": lobpcg_phase(torch, op, res32),
+              "chebyshev": chebyshev_phase(torch, op, res32)}
+    t_family = time.perf_counter() - t_family
     del op, tm                           # free the 12.86 GB image
     gc.collect()
     torch.cuda.empty_cache()
-    safs_stream_phase(torch, dev, rows)
+    t0 = time.perf_counter()
+    widths["svd"] = svd_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_family += time.perf_counter() - t0
+    tm16 = safs_stream_phase(torch, dev, rows)
+    t0 = time.perf_counter()
+    widths["shift_invert"] = shift_invert_phase(torch, dev, tm16)
+    t_family += time.perf_counter() - t0
+    del tm16
+    # each width row's launches: the solve that runs the kernel at it
+    for r in family:
+        kernel, width = r["name"].rsplit("_", 1)
+        phase = {"k1": "chebyshev", "k2": "svd", "k8": "lobpcg",
+                 "b2": "svd", "b8": "lobpcg", "b24": "lobpcg"}[width]
+        key = width if kernel == "spmm_blocksparse" else \
+            f"{width[1:]}x{width[1:]}"
+        r["launches"] = widths[phase][kernel].get(key, 0)
+        if r["launches"] <= 0:
+            fail(f"{r['name']} was not launched by the {phase} solve")
+    log(f"solver family: phases 14-19 took {t_family:.1f} s (the SAFS "
+        f"image phase between them excluded)")
 
     rows.append(flash_phase(torch, timer, dev))
     launches = serve(torch, dev, rows, card_line)

@@ -49,6 +49,22 @@ def _expand(op, v: MultiVector, q: torch.Tensor, h: np.ndarray,
     return q_next, h_new, r_next.double().cpu().numpy()
 
 
+def _start_block(store: TieredStore, n: int, b: int, seed: int,
+                 x0=None) -> torch.Tensor:
+    """The (n, b) float32 start block on the store's device: `x0` when
+    given, else a standard normal draw from a `torch.Generator` seeded
+    with `seed` on that device. (The reference draws with `jax.random`,
+    which torch cannot reproduce; a parity test passes that draw as x0.)"""
+    if x0 is None:
+        gen = torch.Generator(device=store.device).manual_seed(seed)
+        return torch.randn((n, b), generator=gen, dtype=torch.float32,
+                           device=store.device)
+    x0 = store.as_tensor(x0).float().contiguous()
+    if tuple(x0.shape) != (n, b):
+        raise ValueError(f"x0 is {tuple(x0.shape)}, expected ({n}, {b})")
+    return x0
+
+
 def eigsh(op, nev: int, *, block_size: int = 4, num_blocks: int | None = None,
           tol: float = 1e-6, max_restarts: int = 60, which: str = "LM",
           store: TieredStore | None = None, impl: kops.Impl = "auto",
@@ -89,15 +105,7 @@ def eigsh(op, nev: int, *, block_size: int = 4, num_blocks: int | None = None,
     dev = store.device
     n = op.n
 
-    if x0 is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        x0 = torch.randn((n, b), generator=gen, dtype=torch.float32,
-                         device=dev)
-    else:
-        x0 = store.as_tensor(x0).float().contiguous()
-        if tuple(x0.shape) != (n, b):
-            raise ValueError(f"x0 is {tuple(x0.shape)}, expected ({n}, {b})")
-    q, _ = cholqr(x0, impl=impl)
+    q, _ = cholqr(_start_block(store, n, b, seed, x0), impl=impl)
     v = MultiVector(store, n, group_size=group_size, impl=impl)
     h = np.zeros((0, 0), dtype=np.float64)
     r_next = np.zeros((b, b), dtype=np.float64)

@@ -1,11 +1,13 @@
 """Out-of-core tall-and-skinny MultiVector — the paper's §3.4 subspace.
 
-Port of `repro.core.multivector`, with the operations the Krylov–Schur
-path uses. The subspace S ∈ R^{n×m} is stored as column blocks of width b,
-each a separate entry in the TieredStore (one SAFS file per matrix in the
-paper, §3.4.1). Every whole-subspace operation is one
+Port of `repro.core.multivector`. The subspace S ∈ R^{n×m} is stored as
+column blocks of width b, each a separate entry in the TieredStore (one
+SAFS file per matrix in the paper, §3.4.1), and Table 1's Anasazi
+operations are block-streamed. Every whole-subspace operation is one
 `core.stream.SubspacePass`:
 
+  * MvScale is lazy — a scalar per block folded into the block's read
+    (the paper's lazy evaluation, §3.4.4), zero I/O;
   * `project_out` fuses a whole CGS step (h = Vᵀw, w ← w − V h) into one
     read, so `ortho.bcgs2(fused=True)` runs CGS2 in 2 subspace reads
     where the unfused path pays 4;
@@ -14,15 +16,17 @@ paper, §3.4.1). Every whole-subspace operation is one
   * the newest block is pinned in the device tier and the just-demoted
     predecessor is host-pinned (§3.4.4).
 
-Still to port with the rest of the solver family (ROADMAP queue 1 item
-4): mv_random, the lazy MvScale factors, mv_scale_diag, mv_add_mv,
-set_block, clone_view and the restricted (`block_ids`) walk.
+`mv_random` draws from an explicit `torch.Generator` (the reference's
+`jax.random` draws cannot be reproduced in torch; a parity test fills
+the blocks with the reference's draw through `set_block`).
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.stream import SubspacePass
@@ -35,6 +39,13 @@ from repro_torch.kernels import ops as kops
 # Under this cap a compress is exactly one pass; past it the output
 # column groups chunk into ceil(k_keep·n·4 / cap) passes.
 COMPRESS_PASS_ACC_BYTES = 1 << 30
+
+
+@dataclasses.dataclass
+class _Block:
+    name: str
+    ncols: int
+    scale: float = 1.0   # lazy MvScale factor
 
 
 class MultiVector:
@@ -56,31 +67,43 @@ class MultiVector:
         self.group_size = group_size
         self.readahead = max(1, int(readahead))  # groups announced ahead
         self.impl = impl
-        self._names: List[str] = []
-        self._widths: List[int] = []
+        self._blocks: List[_Block] = []
 
     # ------------------------------------------------------------------ basics
     @property
     def ncols(self) -> int:
-        return sum(self._widths)
+        return sum(b.ncols for b in self._blocks)
 
     @property
     def nblocks(self) -> int:
-        return len(self._names)
+        return len(self._blocks)
 
     def block_widths(self) -> List[int]:
-        return list(self._widths)
+        return [b.ncols for b in self._blocks]
 
     def block_names(self) -> List[str]:
         """Store names of the blocks, in column order."""
-        return list(self._names)
+        return [b.name for b in self._blocks]
 
     def _block_name(self, i: int) -> str:
-        return self._names[i]
+        return self._blocks[i].name
+
+    def _offsets(self) -> List[int]:
+        """First column of each block."""
+        offs, off = [], 0
+        for b in self._blocks:
+            offs.append(off)
+            off += b.ncols
+        return offs
 
     def block(self, i: int) -> torch.Tensor:
-        """Materialize block i (one store read)."""
-        return self.store.get(self._names[i])
+        """Materialize block i: one store read, with any lazy scale
+        applied."""
+        b = self._blocks[i]
+        val = self.store.get(b.name)
+        if b.scale != 1.0:
+            val = b.scale * val
+        return val
 
     def append_block(self, arr, *, pin_recent: bool = True) -> None:
         """Append a new rightmost block; pins it (most-recent-block cache)
@@ -90,26 +113,75 @@ class MultiVector:
         t = self.store.as_tensor(arr).float().contiguous()
         if t.shape[0] != self.n:
             raise ValueError(f"block has {t.shape[0]} rows, expected {self.n}")
-        idx = len(self._names)
+        idx = len(self._blocks)
         name = f"{self.name}/b{idx}"
         self.store.put(name, t)
         if pin_recent:
             if idx > 0:
-                prev = self._names[-1]
+                prev = self._blocks[-1].name
                 self.store.unpin(prev)
                 self.store.demote(prev)
                 self.store.host_pin(prev)
             self.store.pin(name)
-        self._names.append(name)
-        self._widths.append(int(t.shape[1]))
+        self._blocks.append(_Block(name, int(t.shape[1])))
+
+    def set_block(self, i: int, arr) -> None:
+        """Anasazi SetBlock: overwrite one block in place (its lazy scale
+        is reset)."""
+        b = self._blocks[i]
+        t = self.store.as_tensor(arr).float().contiguous()
+        if tuple(t.shape) != (self.n, b.ncols):
+            raise ValueError(f"block {i} is ({self.n}, {b.ncols}), got "
+                             f"{tuple(t.shape)}")
+        self.store.put(b.name, t)
+        b.scale = 1.0
 
     def delete(self) -> None:
-        for name in self._names:
-            self.store.delete(name)
-        self._names.clear()
-        self._widths.clear()
+        for b in self._blocks:
+            self.store.delete(b.name)
+        self._blocks.clear()
 
     # --------------------------------------------------------------- Table 1
+    def mv_random(self, generator: torch.Generator,
+                  widths: Sequence[int]) -> None:
+        """MvRandom: (re)initialize blocks with standard normal values
+        drawn from `generator` (on the store's device), block by block."""
+        self.delete()
+        for w in widths:
+            self.append_block(torch.randn(
+                (self.n, w), generator=generator, dtype=torch.float32,
+                device=self.store.device))
+
+    def mv_scale(self, factors: Sequence[float] | float) -> None:
+        """MvScale1 — lazy: fold the scalar into block metadata (zero
+        I/O)."""
+        if np.isscalar(factors):
+            for b in self._blocks:
+                b.scale *= float(factors)
+            return
+        if len(factors) != self.nblocks:
+            raise ValueError(f"{len(factors)} factors for {self.nblocks} "
+                             f"blocks")
+        for b, f in zip(self._blocks, factors):
+            b.scale *= float(f)
+
+    def mv_scale_diag(self, vec) -> None:
+        """MvScale2: BB <- AA diag(vec) — materializes (per-column
+        scales). One streamed pass; each visit writes its scaled block
+        back in place."""
+        if self.nblocks == 0:
+            return
+        vec = self.store.as_tensor(vec).float()
+        offs = self._offsets()
+        p = SubspacePass(self)
+
+        def scale(i, blk, peers):
+            w = self._blocks[i].ncols
+            self.set_block(i, blk * vec[offs[i]:offs[i] + w][None, :])
+
+        p.add_visit(scale, axis=None)
+        p.run()
+
     def mv_times_mat(self, small: torch.Tensor, *, alpha: float = 1.0,
                      beta: float = 0.0, c0: torch.Tensor | None = None
                      ) -> torch.Tensor:
@@ -148,6 +220,23 @@ class MultiVector:
         p.run()
         return h.value
 
+    def mv_add_mv(self, alpha: float, other: "MultiVector", beta: float
+                  ) -> "MultiVector":
+        """MvAddMv: C <- alpha*A + beta*B (blockwise, same block
+        structure), both operands streamed in lockstep."""
+        if self.block_widths() != other.block_widths():
+            raise ValueError("mv_add_mv needs the same block structure")
+        out = MultiVector(self.store, self.n, group_size=self.group_size,
+                          readahead=self.readahead, impl=self.impl)
+        p = SubspacePass(self, peers=[other])
+
+        def emit(i, blk, peers):
+            out.append_block(alpha * blk + beta * peers[0], pin_recent=False)
+
+        p.add_visit(emit, axis=None)
+        p.run()
+        return out
+
     def mv_dot(self, other: "MultiVector") -> torch.Tensor:
         """MvDot: columnwise dot products vec[i] = selfᵀ[:,i] · other[:,i]."""
         if self.block_widths() != other.block_widths():
@@ -163,6 +252,26 @@ class MultiVector:
         h = p.add_norm()
         p.run()
         return h.value
+
+    def clone_view(self, idxs: Sequence[int]) -> torch.Tensor:
+        """CloneView: gather a set of columns (materialized, one pass)."""
+        want = set(int(i) for i in idxs)
+        offs = self._offsets()
+        p = SubspacePass(self)
+
+        def pick(i, blk, peers):
+            local = [j for j in range(blk.shape[1]) if offs[i] + j in want]
+            return blk[:, local] if local else None
+
+        h = p.add_visit(pick, axis=1)
+        p.run()
+        return h.value
+
+    def conv_layout(self) -> torch.Tensor:
+        """ConvLayout: column-major subspace block → row-major operand for
+        SpMM. A no-op for row-major tensors, kept for API fidelity:
+        returns the most recent block materialized."""
+        return self.block(self.nblocks - 1)
 
     # ------------------------------------------------------------ restart ops
     def compress(self, q: torch.Tensor, new_widths: Sequence[int], *,

@@ -1,20 +1,20 @@
 """Block (re)orthogonalization — step (1) of Algorithm 1.
 
-Port of `repro.core.ortho` (cholqr, bcgs2, ortho_error). Reorthogonaliza-
+Port of `repro.core.ortho`. Reorthogonaliza-
 tion (MvTransMv + MvTimesMatAddMv) dominates the solver's cost when many
 eigenvalues are wanted:
 
   * cholqr — CholeskyQR2: Gram (the `gram` kernel) → Cholesky →
              triangular solve, twice. The b×b factorizations go to
              `torch.linalg`.
+  * svqb   — Stathopoulos–Wu SVQB, rank-revealing: the orthonormalizer
+             of LOBPCG's blocks, with `svqb_transform` exposing the b×b
+             transform so it can be co-applied to a block's image.
   * bcgs2  — block Gram–Schmidt (×2) of a new block against an
              out-of-core MultiVector basis; fused=True runs each pass as
              one streamed subspace read (`MultiVector.project_out`),
              fused=False keeps the MvTransMv + MvTimesMatAddMv pair per
              pass (4 reads) for parity tests.
-
-`svqb` / `svqb_transform` come with the LOBPCG port (ROADMAP queue 1
-item 3).
 """
 from __future__ import annotations
 
@@ -58,6 +58,39 @@ def cholqr(x: torch.Tensor, *, impl: kops.Impl = "auto", iters: int = 2
                                           left=False).contiguous()
         r_total = r @ r_total
     return q, r_total
+
+
+def svqb_transform(x: torch.Tensor, *, impl: kops.Impl = "auto",
+                   tol: float = 1e-10) -> Tuple[torch.Tensor, int]:
+    """The SVQB basis transform T (b×b) with Q = X @ T orthonormal on the
+    numerical range of X; returns (T, numerical_rank). Rank-deficient
+    directions map to zero columns of Q.
+
+    The eigendecomposition of the scaled b×b Gram runs in float32, as in
+    the reference, so the rank test `w > tol·max(w)` takes the same
+    branches. The default tol (1e-10) lies below float32's floor: a null
+    direction's eigenvalue comes out as rounding noise of either sign,
+    around 1e-8, and is dropped only when that noise falls below tol. A
+    caller that needs rank detection passes a tol for float32 (a few
+    times 1e-7)."""
+    g = kops.gram(x, x, impl=impl)
+    d = torch.sqrt(torch.clamp(torch.diag(g), min=1e-30))
+    dinv = 1.0 / d
+    gs = g * dinv[:, None] * dinv[None, :]
+    w, v = torch.linalg.eigh(gs)
+    keep = w > tol * torch.max(w)
+    winv = torch.where(keep, 1.0 / torch.sqrt(torch.clamp(w, min=1e-30)),
+                       torch.zeros_like(w))
+    t = (dinv[:, None] * v) * winv[None, :]
+    return t.contiguous(), int(keep.sum())
+
+
+def svqb(x: torch.Tensor, *, impl: kops.Impl = "auto", tol: float = 1e-10
+         ) -> Tuple[torch.Tensor, int]:
+    """SVQB orthonormalization; returns (Q, numerical_rank). Rank-deficient
+    directions are replaced by zero columns (caller refreshes them)."""
+    t, rank = svqb_transform(x, impl=impl, tol=tol)
+    return kops.tsgemm(x, t, impl=impl), rank
 
 
 def bcgs2(basis: MultiVector, w: torch.Tensor, *, impl: kops.Impl = "auto",

@@ -25,6 +25,16 @@ def sort_ritz(theta, which: str) -> np.ndarray:
     raise ValueError(f"unknown which={which}")
 
 
+def ritz_residual_bounds(s_coupling, y) -> np.ndarray:
+    """Cheap residual norms from the Krylov relation A V = V H + Q S eᵀ:
+    ‖A x_i − θ_i x_i‖ = ‖S y_i[last-block rows]‖ — no I/O needed.
+
+    s_coupling: (b, m) coupling (nonzero only in trailing columns
+    pre-restart); y: (m, k) Ritz eigenvectors of H. Host arrays (H and
+    its Ritz bookkeeping stay in float64 numpy, as in the reference)."""
+    return np.linalg.norm(np.asarray(s_coupling) @ np.asarray(y), axis=0)
+
+
 @dataclasses.dataclass
 class EigResult:
     eigenvalues: np.ndarray        # (nev,)

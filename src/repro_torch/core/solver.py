@@ -1,33 +1,46 @@
 """The pluggable solver family — one protocol over the streamed substrate.
 
-Port of `repro.core.solver` with `krylov_schur` registered. Drivers call
+Port of `repro.core.solver`. Drivers call
 
-    solve(op, nev, method="krylov_schur")
+    solve(op, nev, method="krylov_schur" | "lanczos" | "lobpcg" | "svd")
 
 and every implementation receives a `SolverContext`: the operator, the
 `TieredStore` holding its out-of-core blocks, the ortho policy ("fused"
-streams each CGS step as one `SubspacePass`, "unfused" keeps the
-single-consumer passes), the convergence targets and the per-restart
-`callback(step, theta[:nev], res[:nev])`.
+streams each CGS / gram / update step as one `SubspacePass`, "unfused"
+keeps the single-consumer passes), the convergence targets and the
+per-restart (or per-iteration) `callback(step, theta[:nev], res[:nev])`.
 
-Not ported yet, and raising `NotImplementedError` that names the ROADMAP
-item: the other family members ("lanczos", "lobpcg", "svd") and the
-spectral transforms (queue 1 item 3), `trace=` (item 4, with the rest of
-`repro.obs`) and `checkpoint=` / `resume=` (item 4).
+Spectral transforms compose at this layer: when the operator declares
+`CAP_SPECTRAL_TRANSFORM` (ShiftInvertOperator, ChebyshevFilterOperator),
+`solve` runs the chosen method on the transform — `which` then selects in
+the transformed spectrum, "LM" by default — and afterwards maps the Ritz
+values back through `op.untransform` and replaces the cheap residual
+bounds with true residuals against the inner operator, so the returned
+`EigResult` describes eigenpairs of A itself.
+
+The start block of every method can be given explicitly through the
+options (`x0=`, passed on to the method), as parity tests do with the
+reference's `jax.random` draw. Not ported yet, and raising
+`NotImplementedError` that names the ROADMAP item: `trace=` (queue 1
+item 4, with the rest of `repro.obs`) and `checkpoint=` / `resume=`
+(item 4).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional, Protocol
 
+import numpy as np
+import torch
+
 from repro_torch.core.krylov_schur import eigsh
+from repro_torch.core.lanczos import lanczos_eigsh
+from repro_torch.core.lobpcg import lobpcg
 from repro_torch.core.operator import CAP_SPECTRAL_TRANSFORM, capabilities
 from repro_torch.core.residuals import EigResult
+from repro_torch.core.svd import svds
 from repro_torch.core.tiered import TieredStore
 from repro_torch.kernels import ops as kops
-
-# family members of the reference that are still to port, by ROADMAP item
-_NOT_PORTED = {"lanczos": 3, "lobpcg": 3, "svd": 3}
 
 
 @dataclasses.dataclass
@@ -47,7 +60,7 @@ class SolverContext:
     compute_eigenvectors: bool = True
     callback: Optional[Callable] = None
     options: Dict = dataclasses.field(default_factory=dict)
-    # method-specific extras (num_blocks, group_size, x0, ...)
+    # method-specific extras (num_blocks, group_size, precond, at_op, x0)
 
     @property
     def fused_passes(self) -> bool:
@@ -79,6 +92,59 @@ class _KrylovSchur:
             x0=ctx.options.get("x0"))
 
 
+class _Lanczos:
+    name = "lanczos"
+    default_which = "LM"
+
+    def solve(self, ctx: SolverContext) -> EigResult:
+        return lanczos_eigsh(
+            ctx.op, ctx.nev, block_size=ctx.block_size or 4,
+            num_blocks=ctx.options.get("num_blocks"), which=ctx.which,
+            store=ctx.store, impl=ctx.impl, seed=ctx.seed,
+            group_size=ctx.options.get("group_size", 8),
+            compute_eigenvectors=ctx.compute_eigenvectors,
+            fused_passes=ctx.fused_passes, callback=ctx.callback,
+            x0=ctx.options.get("x0"))
+
+
+class _Lobpcg:
+    name = "lobpcg"
+    default_which = "LA"
+
+    def solve(self, ctx: SolverContext) -> EigResult:
+        return lobpcg(
+            ctx.op, ctx.nev, block_size=ctx.block_size,
+            tol=ctx.tol, max_iters=ctx.max_iters, which=ctx.which,
+            precond=ctx.options.get("precond"), store=ctx.store,
+            seed=ctx.seed, impl=ctx.impl, fused_passes=ctx.fused_passes,
+            group_size=ctx.options.get("group_size", 8),
+            callback=ctx.callback, x0=ctx.options.get("x0"))
+
+
+class _Svd:
+    """`svd.svds` behind the family dispatch: eigensolve of AᵀA via the
+    Krylov–Schur manager, σ = √λ. Requires `at_op` (the Aᵀ operator) in
+    ctx.options; the returned EigResult carries σ as `eigenvalues` and U
+    as `eigenvectors` (use `svd.svds` directly for the full triplet)."""
+    name = "svd"
+    default_which = "LA"
+
+    def solve(self, ctx: SolverContext) -> EigResult:
+        at_op = ctx.options.get("at_op")
+        if at_op is None:
+            raise ValueError("method='svd' needs options={'at_op': <Aᵀ op>}")
+        r = svds(ctx.op, at_op, ctx.nev, block_size=ctx.block_size or 2,
+                 num_blocks=ctx.options.get("num_blocks"), tol=ctx.tol,
+                 max_restarts=ctx.max_iters, store=ctx.store, impl=ctx.impl,
+                 seed=ctx.seed, compute_vectors=ctx.compute_eigenvectors,
+                 callback=ctx.callback, x0=ctx.options.get("x0"))
+        return EigResult(
+            eigenvalues=r.s, eigenvectors=r.u,
+            residuals=np.zeros_like(r.s), n_restarts=r.n_restarts,
+            n_ops=r.n_ops, m_subspace=0, converged=r.converged,
+            io_stats=r.io_stats)
+
+
 _REGISTRY: Dict[str, Solver] = {}
 
 
@@ -91,7 +157,26 @@ def solver_names() -> list:
     return sorted(_REGISTRY)
 
 
-register_solver(_KrylovSchur())
+for _s in (_KrylovSchur(), _Lanczos(), _Lobpcg(), _Svd()):
+    register_solver(_s)
+
+
+def _untransform(op, res: EigResult) -> EigResult:
+    """Map an EigResult computed on a spectral transform back to the inner
+    operator: eigenvalues via `op.untransform` (Rayleigh quotients on the
+    inner operator when vectors were materialized), residuals re-measured
+    against the inner operator (the solver's cheap bounds were residuals
+    of f(A), which say nothing quantitative about A)."""
+    vecs = res.eigenvectors
+    lam = op.untransform(res.eigenvalues, vecs)
+    if vecs is None:
+        return dataclasses.replace(res, eigenvalues=lam)
+    x = vecs.float()
+    ax = op.inner.matmat(x)
+    th = torch.as_tensor(lam, dtype=torch.float32, device=x.device)
+    resid = torch.linalg.norm(ax - x * th[None, :], dim=0)
+    return dataclasses.replace(res, eigenvalues=lam,
+                               residuals=resid.double().cpu().numpy())
 
 
 def solve(op, nev: int, *, method: str = "krylov_schur",
@@ -105,10 +190,21 @@ def solve(op, nev: int, *, method: str = "krylov_schur",
           **options) -> EigResult:
     """Solve for `nev` eigenpairs of `op` with the chosen family member.
 
+    method: one of `solver_names()` — "krylov_schur" (the paper's driver),
+    "lanczos" (HEIGEN-style no-restart baseline), "lobpcg" (3·b working
+    set, out-of-core [X, W, P]), "svd" (AᵀA Gram path; needs
+    `at_op=<Aᵀ operator>`).
+
+    which defaults per method ("LM" for the Krylov solvers, "LA" for
+    LOBPCG and svd). When `op` declares CAP_SPECTRAL_TRANSFORM, `which`
+    selects in the transformed spectrum (default "LM"; LOBPCG takes "LA"
+    for it) and the result is mapped back to eigenpairs of the inner
+    operator, with true residuals against it.
+
     The store defaults to a `TieredStore` on the operator's device (the
     CUDA card unless the operator was built with `device="cpu"`). All
     remaining keyword arguments land in `SolverContext.options`
-    (num_blocks, group_size, x0, ...).
+    (num_blocks, group_size, precond, at_op, x0).
     """
     if trace is not None:
         raise NotImplementedError(
@@ -117,24 +213,26 @@ def solve(op, nev: int, *, method: str = "krylov_schur",
     if checkpoint is not None or resume is not None:
         raise NotImplementedError(
             "checkpoint/resume is not ported yet: ROADMAP.md queue 1 item 4")
-    if method in _NOT_PORTED and method not in _REGISTRY:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: ROADMAP.md queue 1 item "
-            f"{_NOT_PORTED[method]}")
     if method not in _REGISTRY:
         raise ValueError(f"unknown method {method!r}; "
                          f"registered: {solver_names()}")
-    if CAP_SPECTRAL_TRANSFORM in capabilities(op):
-        raise NotImplementedError(
-            "spectral transforms are not ported yet: ROADMAP.md queue 1 "
-            "item 3")
     solver = _REGISTRY[method]
+    is_transform = CAP_SPECTRAL_TRANSFORM in capabilities(op)
     if which is None:
-        which = getattr(solver, "default_which", "LM")
+        which = "LM" if is_transform else getattr(solver, "default_which",
+                                                  "LM")
+    if is_transform and method == "lobpcg" and which == "LM":
+        # LOBPCG optimizes an algebraic extreme; for the transforms LM ≈ LA
+        # (shift-invert near a dominant σ-neighborhood, Chebyshev filters
+        # are ≥ 1 on the wanted set) — take the algebraic top
+        which = "LA"
     ctx = SolverContext(
         op=op, nev=nev, which=which, tol=tol, max_iters=max_iters,
         store=store or TieredStore(device=getattr(op, "device", None)),
         block_size=block_size, ortho=ortho, impl=impl, seed=seed,
         compute_eigenvectors=compute_eigenvectors, callback=callback,
         options=options)
-    return solver.solve(ctx)
+    res = solver.solve(ctx)
+    if is_transform:
+        res = _untransform(op, res)
+    return res

@@ -11,18 +11,19 @@ in attachment order.
 I/O discipline per pass, as in the reference:
   * the pass's block list is announced to `TieredStore.prefetch` up
     front and the window is re-offered as the walk advances;
-  * one `TieredStore.get` per block per pass, shared by all consumers;
+  * one `TieredStore.get` per block per pass, shared by all consumers
+    (lazy MvScale factors are applied once, to the shared value);
   * `TieredStore.begin_pass()` once per run, so `IOStats.passes` counts
     streamed subspace reads and `pass_bytes_read` their bytes.
 
-Peers: a pass may walk other MultiVectors in lockstep (mv_dot); their
-blocks are interleaved into the announced list and read at the same
-visit. The reference's restricted walk (`block_ids`, used by LOBPCG)
-comes with the LOBPCG port.
+Peers: a pass may walk other MultiVectors in lockstep (mv_dot,
+mv_add_mv); their blocks are interleaved into the announced list and
+read at the same visit. `block_ids` restricts the walk to a subset of
+blocks (LOBPCG's residual pass reads only X of its [X, W, P] basis).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -139,9 +140,10 @@ class _Project(_Consumer):
 
 class _Visit(_Consumer):
     """Generic per-block visitor: fn(i, block, peers) -> part or None;
-    finalize concatenates collected parts along `axis`."""
+    finalize concatenates collected parts along `axis` (or returns them
+    raw with axis=None)."""
 
-    def __init__(self, fn, axis: int):
+    def __init__(self, fn, axis: Optional[int]):
         self.fn, self.axis = fn, axis
         self.parts: List = []
         self.handle = Handle()
@@ -152,6 +154,8 @@ class _Visit(_Consumer):
             self.parts.append(part)
 
     def finalize(self):
+        if self.axis is None:
+            return self.parts
         return torch.cat(self.parts, dim=self.axis)
 
 
@@ -168,16 +172,25 @@ class SubspacePass:
     `peers` are MultiVectors with the same block structure walked in
     lockstep. `readahead` is the number of store names kept announced
     ahead of the walk (default: the MultiVector's group-level readahead).
+
+    `block_ids` restricts the walk to a subset of blocks (in the given
+    order); visitors still receive the original block index.
     """
 
     def __init__(self, mv, *, peers: Sequence = (),
-                 readahead: int | None = None):
+                 readahead: int | None = None,
+                 block_ids: Sequence[int] | None = None):
         self.mv = mv
         self.peers = list(peers)
         for p in self.peers:
             if p.nblocks != mv.nblocks:
                 raise ValueError(f"peer has {p.nblocks} blocks, "
                                  f"pass has {mv.nblocks}")
+        self.block_ids = (list(range(mv.nblocks)) if block_ids is None
+                          else [int(i) for i in block_ids])
+        for i in self.block_ids:
+            if not 0 <= i < mv.nblocks:
+                raise ValueError(f"block id {i} outside [0, {mv.nblocks})")
         self.store = mv.store
         if readahead is None:
             readahead = mv.readahead * mv.group_size * (1 + len(self.peers))
@@ -199,19 +212,22 @@ class SubspacePass:
                    alpha: float = 1.0) -> Handle:
         """accs[j] = alpha * self @ small[:, cols_j] — one output
         accumulator per entry of out_widths (default: one output of
-        small's full width), all device-resident for the pass."""
+        small's full width), all device-resident for the pass. On a
+        restricted walk (`block_ids`), `small`'s rows span the visited
+        blocks only, stacked in walk order."""
         m, k = small.shape
         widths = self.mv.block_widths()
-        if m != sum(widths):
-            raise ValueError(f"small has {m} rows, subspace {sum(widths)}")
+        m_visited = sum(widths[i] for i in self.block_ids)
+        if m != m_visited:
+            raise ValueError(f"small has {m} rows, the walk {m_visited}")
         if out_widths is None:
             out_widths = [k]
         if sum(out_widths) != k:
             raise ValueError(f"out_widths {list(out_widths)} != {k} columns")
         offsets, off = {}, 0
-        for i, w in enumerate(widths):
+        for i in self.block_ids:
             offsets[i] = off
-            off += w
+            off += widths[i]
         return self._attach(_Matmul(small, offsets, out_widths, alpha,
                                     self.mv.n, self.mv.impl))
 
@@ -232,13 +248,16 @@ class SubspacePass:
             lambda i, blk, peers: torch.sqrt(torch.sum(blk ** 2, dim=0)),
             axis=0)
 
-    def add_visit(self, fn: Callable, *, axis: int = 0) -> Handle:
+    def add_visit(self, fn: Callable, *, axis: Optional[int] = 0) -> Handle:
+        """fn(i, block, peers) -> part or None per visit; the parts are
+        concatenated along `axis`, or returned as a list with
+        axis=None."""
         return self._attach(_Visit(fn, axis))
 
     # ------------------------------------------------------------------ run
     def _names(self) -> List[str]:
         names = []
-        for i in range(self.mv.nblocks):
+        for i in self.block_ids:
             names.append(self.mv._block_name(i))
             for p in self.peers:
                 names.append(p._block_name(i))
@@ -253,17 +272,17 @@ class SubspacePass:
         mv = self.mv
         names = self._names()
         read0 = self.store.begin_pass()
-        with trace.span("pass.subspace", blocks=mv.nblocks,
+        with trace.span("pass.subspace", blocks=len(self.block_ids),
                         consumers=len(self._consumers),
                         peers=len(self.peers)) as sp:
             if names:
                 self.store.prefetch(names)  # whole pass announced up front
             pos = 0
-            for i in range(mv.nblocks):
+            for i in self.block_ids:
                 if self.readahead:
                     self.store.prefetch(
                         names[pos + 1:pos + 1 + self.readahead])
-                block = mv.block(i)
+                block = mv.block(i)         # lazy MvScale applied once
                 pos += 1
                 pblocks = []
                 for p in self.peers:

@@ -1,13 +1,14 @@
 """End-to-end out-of-core eigensolve with the subspace and the matrix
-image on disk (SAFS). Port of `examples/ooc_lanczos.py` for `--solver ks`.
+image on disk (SAFS). Port of `examples/ooc_lanczos.py`.
 
     PYTHONPATH=src python -m repro_torch.examples.ooc_lanczos [--n 4000]
-        [--nnz 48000] [--nev 8] [--root DIR] [--trace OUT.jsonl]
-        [--device cpu]
+        [--nnz 48000] [--nev 8] [--solver ks|lanczos] [--root DIR]
+        [--trace OUT.jsonl] [--device cpu]
 
 An R-MAT graph, the semi-external SpMM operator and the Krylov–Schur
-loop with the *entire vector subspace AND the matrix image living in
-SAFS page files* (`TieredStore(backend="safs")`, §3.4.1, and
+(or block-Lanczos baseline) loop with the *entire vector subspace AND
+the matrix image living in SAFS page files*
+(`TieredStore(backend="safs")`, §3.4.1, and
 `GraphOperator(stream_image=True)`, §3.3.3): every host-tier byte goes
 through the LRU page cache and the batched vectored I/O engine,
 demotions retire through the async write-behind queue, and the readahead
@@ -20,8 +21,8 @@ the two spectra agree to rtol 1e-5, then prints logical against physical
 tier traffic, prefetch overlap and the backend's `stats_dict()`. With
 `--trace OUT.jsonl` the SAFS solve's spans are written there.
 
-`--solver lanczos` and `--checkpoint/--resume` raise NotImplementedError:
-block Lanczos is ROADMAP.md queue 1 item 3 and checkpoint/resume item 4.
+`--checkpoint/--resume` raise NotImplementedError: checkpoint/resume is
+ROADMAP.md queue 1 item 4.
 """
 import argparse
 import contextlib
@@ -37,14 +38,18 @@ from repro_torch.graphs import normalized_adjacency, pack_tiles, rmat_graph
 from repro_torch.obs import Tracer, tracing
 
 
-def run_solve(image, nev, *, store, stream_image=False):
+_METHODS = {"ks": "krylov_schur", "lanczos": "lanczos"}
+
+
+def run_solve(image, nev, *, solver, store, stream_image=False):
     # stream_image=True spills the edge tiles into the same page store as
     # the subspace: matmat then really is semi-external (§3.3.3)
     op = GraphOperator(image, store=store, stream_image=stream_image,
                        image_chunk_bytes=1 << 20)
+    kw = ({"tol": 1e-7, "max_iters": 100} if solver == "ks" else {})
     try:
-        return solve(op, nev, method="krylov_schur", block_size=4,
-                     store=store, group_size=2, tol=1e-7, max_iters=100)
+        return solve(op, nev, method=_METHODS[solver], block_size=4,
+                     store=store, group_size=2, **kw)
     finally:
         op.delete_image()
 
@@ -64,10 +69,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.solver != "ks":
-        raise NotImplementedError(
-            "--solver lanczos: block Lanczos is not ported yet "
-            "(ROADMAP.md queue 1 item 3)")
     if args.checkpoint or args.resume:
         raise NotImplementedError(
             "--checkpoint/--resume: checkpoint/resume is not ported yet "
@@ -82,7 +83,7 @@ def main(argv=None):
 
     # in-memory reference: identical solve, ram backend
     ram_store = TieredStore(budget, device=args.device)
-    ram = run_solve(image, args.nev, store=ram_store)
+    ram = run_solve(image, args.nev, solver=args.solver, store=ram_store)
 
     root = args.root or tempfile.mkdtemp(prefix="ooc_lanczos_")
     own_tmp = args.root is None
@@ -95,8 +96,8 @@ def main(argv=None):
     try:
         tracer = Tracer()
         with tracing(tracer) if args.trace else contextlib.nullcontext():
-            disk = run_solve(image, args.nev, store=safs_store,
-                             stream_image=True)
+            disk = run_solve(image, args.nev, solver=args.solver,
+                             store=safs_store, stream_image=True)
         if args.trace:
             tracer.write_jsonl(args.trace)
             print(f"trace: {args.trace}")

@@ -1,8 +1,13 @@
-"""Synthetic R-MAT graphs (numpy), the same draws as `repro.graphs.synth`.
+"""Synthetic graphs (numpy), the same draws as `repro.graphs.synth`.
 
-Generators return deduplicated COO arrays (rows, cols, vals). For a given
-(n, nnz, seed) they produce exactly the reference's arrays, so both
-packages factorize the same operator.
+Generators return deduplicated COO arrays (rows, cols, vals). For the
+same arguments they produce exactly the reference's arrays, byte for
+byte, so both packages factorize the same operator.
+
+  - rmat_graph:          power-law social graphs (Twitter / Friendster)
+  - knn_band_graph:      near-banded weighted KNN graph (Babel Tagalog)
+  - clustered_web_graph: domain-clustered directed page graph
+  - erdos_renyi:         uniform random control
 """
 from __future__ import annotations
 
@@ -44,6 +49,64 @@ def rmat_graph(n: int, nnz: int, *, seed: int = 0, symmetric: bool = False,
         rows = rows * 2 + (quad_c | quad_d)
         cols = cols * 2 + (quad_b | quad_d)
     ok = (rows < n) & (cols < n) & (rows != cols)
+    rows, cols = rows[ok][:nnz], cols[ok][:nnz]
+    if symmetric:
+        rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])
+    return _dedup(rows, cols, n)
+
+
+def knn_band_graph(n: int, k: int = 8, *, bandwidth: int | None = None,
+                   seed: int = 0):
+    """Symmetrized KNN graph with near-banded structure and cosine-ish weights.
+
+    Matches the paper's KNN distance graph: most degrees in a narrow range,
+    no power law, weighted edges.
+    """
+    rng = np.random.default_rng(seed)
+    bw = bandwidth if bandwidth is not None else max(4 * k, 16)
+    rows = np.repeat(np.arange(n, dtype=np.int64), k)
+    offs = rng.integers(1, bw + 1, size=n * k) * rng.choice([-1, 1], size=n * k)
+    cols = np.clip(rows + offs, 0, n - 1)
+    ok = rows != cols
+    rows, cols = rows[ok], cols[ok]
+    # symmetrize
+    rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])
+    vals = (0.5 + 0.5 * rng.random(rows.shape[0])).astype(np.float32)
+    r, c, v = _dedup(rows, cols, n, vals)
+    # make weights symmetric: w(i,j) = w(j,i) by averaging with transpose
+    key = r.astype(np.int64) * n + c.astype(np.int64)
+    tkey = c.astype(np.int64) * n + r.astype(np.int64)
+    order, torder = np.argsort(key), np.argsort(tkey)
+    v_sym = np.empty_like(v)
+    v_sym[order] = 0.5 * (v[order] + v[torder])
+    return r, c, v_sym
+
+
+def clustered_web_graph(n: int, nnz: int, *, n_domains: int = 64, seed: int = 0,
+                        p_intra: float = 0.9):
+    """Directed page graph analogue: vertices clustered by domain; most edges
+    stay within a domain (the paper notes this gives good cache hit rates)."""
+    rng = np.random.default_rng(seed)
+    dom = np.sort(rng.integers(0, n_domains, size=n))  # clustered vertex ids
+    dom_start = np.searchsorted(dom, np.arange(n_domains))
+    dom_end = np.searchsorted(dom, np.arange(n_domains), side="right")
+    rows = rng.integers(0, n, size=int(nnz * 1.3))
+    intra = rng.random(rows.shape[0]) < p_intra
+    d = dom[rows]
+    lo, hi = dom_start[d], np.maximum(dom_end[d], dom_start[d] + 1)
+    intra_cols = lo + (rng.random(rows.shape[0]) * (hi - lo)).astype(np.int64)
+    inter_cols = rng.integers(0, n, size=rows.shape[0])
+    cols = np.where(intra, intra_cols, inter_cols)
+    ok = rows != cols
+    rows, cols = rows[ok][:nnz], cols[ok][:nnz]
+    return _dedup(rows, cols, n)
+
+
+def erdos_renyi(n: int, nnz: int, *, seed: int = 0, symmetric: bool = True):
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n, size=int(nnz * 1.2))
+    cols = rng.integers(0, n, size=int(nnz * 1.2))
+    ok = rows != cols
     rows, cols = rows[ok][:nnz], cols[ok][:nnz]
     if symmetric:
         rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])

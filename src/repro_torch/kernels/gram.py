@@ -18,6 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import require_cuda_f32
 
 LAUNCHES = 0   # kernel launches by this process (chip_smoke reads it)
+LAUNCHES_BY_SHAPE: dict[tuple[int, int], int] = {}   # by G's shape (m, b)
 
 MIN_ROWS_PER_PART = 1024
 MAX_PARTS = 256
@@ -67,4 +68,5 @@ def gram(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0
         n_parts, rows_per_part, float(alpha), device, stream)
     _build.check(err, "gram")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[m, bc] = LAUNCHES_BY_SHAPE.get((m, bc), 0) + 1
     return out

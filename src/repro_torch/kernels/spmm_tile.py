@@ -26,6 +26,7 @@ from repro_torch.kernels._checks import (F32_BF16, require_cuda,
 
 LAUNCHES = 0        # spmm_blocksparse calls that launched (chip_smoke reads it)
 LAUNCHES_BF16 = 0   # those of them over bf16 blocks
+LAUNCHES_BY_K: dict[int, int] = {}   # those of them by X's width k
 
 N_SMS = 132   # an H100 SXM's SMs: the default chunk of a plan on the CPU
 CHUNK_MIN, CHUNK_MAX = 16, 512
@@ -155,7 +156,7 @@ def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
 
     Types and shapes are checked before the device, so a refusal reads
     the same on any device. One call is one count in LAUNCHES (and in
-    LAUNCHES_BF16 for bf16 blocks), though a plan with split rows
+    LAUNCHES_BF16 for bf16 blocks, and in LAUNCHES_BY_K[k]), though a plan with split rows
     launches a second, combining kernel.
     """
     global LAUNCHES, LAUNCHES_BF16
@@ -214,4 +215,5 @@ def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
     _build.check(err, "spmm_blocksparse")
     LAUNCHES += 1
     LAUNCHES_BF16 += bf16
+    LAUNCHES_BY_K[k] = LAUNCHES_BY_K.get(k, 0) + 1
     return y

@@ -14,6 +14,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import require_cuda_f32
 
 LAUNCHES = 0   # kernel launches by this process (chip_smoke reads it)
+LAUNCHES_BY_SHAPE: dict[tuple[int, int], int] = {}   # by B's shape (m, b)
 
 MAX_B_BYTES = 48 << 10   # B lives in static-size shared memory
 
@@ -43,4 +44,5 @@ def tsgemm(a: torch.Tensor, b: torch.Tensor, c0: torch.Tensor | None = None,
         out.data_ptr(), n, m, bc, float(alpha), float(beta), device, stream)
     _build.check(err, "tsgemm")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[m, bc] = LAUNCHES_BY_SHAPE.get((m, bc), 0) + 1
     return out

@@ -111,11 +111,16 @@ def test_solve_runs_krylov_schur(graph):
 
 
 def test_solve_raises_for_what_is_not_ported(graph):
+    """The whole family is registered; tracing and checkpoint/resume
+    (ROADMAP queue 1 item 4) still raise, and an unknown method is a
+    ValueError."""
     _, tm, _ = graph
     op, store = _port_op(tm)
-    for method in ("lanczos", "lobpcg", "svd"):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            solve(op, NEV, method=method, store=store)
+    assert {"lanczos", "lobpcg", "svd"} <= set(solver_names())
+    for kw in (dict(trace="t.jsonl"), dict(checkpoint=object()),
+               dict(resume="ckpt")):
+        with pytest.raises(NotImplementedError, match="item 4"):
+            solve(op, NEV, store=store, **kw)
     with pytest.raises(ValueError, match="unknown method"):
         solve(op, NEV, method="davidson", store=store)
     for kw in ({"trace": "t.jsonl"}, {"checkpoint": object()},

@@ -8,7 +8,11 @@ Tolerance: rtol 1e-6 of the output's largest magnitude for SpMM (split
 rows sum their chunks in another order than the plain version; bf16
 blocks are widened exactly, so the same holds for them) and TSGEMM; a
 Gram entry sums n products, so its difference is held to 1e-6
-of the sum of the products' magnitudes. Flash attention is held to its
+of the sum of the products' magnitudes. The solver family's widths
+(SpMM at k = 1, 2, 8; the generic gram and tsgemm at b = 2 and 8) are
+held the same way, and
+LOBPCG and the spectral transforms on the card to the same solves on
+the CPU's plain versions (rtol 1e-5). Flash attention is held to its
 plain version run in float32 on the same inputs: 2e-5 of the output's
 largest magnitude for float32 (sums in another order and another exp),
 2^-8 of it for bf16, whose output is rounded once to bf16 (half an ulp,
@@ -317,6 +321,119 @@ def test_small_solve_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(got, want, rtol=1e-5)
     assert gpu.io_stats == cpu.io_stats
     assert gpu.eigenvectors.is_cuda
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind, width", [
+    ("spmm", 1), ("spmm", 2), ("spmm", 8), ("gram", 2), ("gram", 8),
+    ("tsgemm", 2), ("tsgemm", 8)])
+def test_solver_family_widths_vs_plain_on_card(cuda, kind, width):
+    """The widths the rest of the solver family brings: SpMM at k = 1
+    (estimate_spectral_range), 2 (the SVD) and 8 (LOBPCG at nev 8), on an
+    image with split heavy rows; the generic gram kernel at (n, 2)ᵀ(n, 2)
+    and (n, 8)ᵀ(n, 8); the generic tsgemm at (n, 2)·(2, 2) and
+    (n, 8)·(8, 8) with C0. One launch each, bit-identical over 3 calls,
+    within tolerance of the plain version."""
+    g = np.random.default_rng(100 + width)
+    if kind == "spmm":
+        n = 2 ** 14
+        r, c, v = rmat_graph(n, 2 ** 17, seed=3, symmetric=True)
+        tm = pack_tiles(n, n, r, c, v, block_shape=(64, 64), min_block_nnz=4)
+        args = [_t(a).to(cuda) for a in (tm.blocks, tm.block_cols,
+                                         tm.row_ptr)]
+        plan = spmm_tile.plan(args[2], chunk=16)
+        assert plan.splits.shape[0] > 0
+        x = _t(g.standard_normal((n, width)).astype(np.float32)).to(cuda)
+        mod, call = spmm_tile, lambda: ops.spmm_blocks(*args, x, plan=plan)
+        want = ops.spmm_blocks(*args, x, impl="ref")
+    else:
+        n = 2 ** 20 + 3
+        a = _t(g.standard_normal((n, width)).astype(np.float32)).to(cuda)
+        bb = _t(g.standard_normal((n, width)).astype(np.float32)).to(cuda)
+        small = _t(g.standard_normal((width, width)).astype(
+            np.float32)).to(cuda)
+        if kind == "gram":
+            mod, call = gram, lambda: ops.gram(a, bb)
+        else:
+            mod = tsgemm
+
+            def call():
+                return ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=bb)
+            want = ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=bb,
+                              impl="ref")
+    outs = []
+    for _ in range(3):
+        before = mod.LAUNCHES
+        outs.append(call())
+        assert mod.LAUNCHES == before + 1
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    if kind == "gram":
+        _gram_ok(outs[0], a, bb, 1.0)
+    else:
+        _close(outs[0].cpu(), want.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+def test_lobpcg_on_card_matches_cpu(cuda, fused):
+    """LOBPCG at nev 8 (b = 8) through the kernels, held iterate for
+    iterate to the same solve on the CPU's plain versions (θ rtol 1e-5),
+    with equal IOStats; gram, tsgemm and SpMM all launch."""
+    from repro_torch.core import GraphOperator, TieredStore, lobpcg
+    from repro_torch.graphs import rmat_spectral
+    n = 1200
+    r, c, v = rmat_spectral(n, 10000, seed=5)
+    tm = pack_tiles(n, n, r, c, v, block_shape=(64, 64), min_block_nnz=4)
+    x0 = np.random.default_rng(1).standard_normal((tm.shape[0], 8)).astype(
+        np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        store = TieredStore(device=dev)
+        counts = [m.LAUNCHES for m in (spmm_tile, gram, tsgemm)]
+        trace = []
+        res = lobpcg(GraphOperator(tm, store=store), 8, tol=0.0,
+                     max_iters=6, store=store, x0=x0, fused_passes=fused,
+                     callback=lambda i, th, rs: trace.append(th))
+        launched = [m.LAUNCHES - k for m, k in
+                    zip((spmm_tile, gram, tsgemm), counts)]
+        assert all(launched) == (dev != "cpu"), launched
+        out[str(dev)] = res, trace
+    (cpu, cpu_trace), (gpu, gpu_trace) = out["cpu"], out[str(cuda)]
+    assert len(gpu_trace) == len(cpu_trace) == 6
+    for got, want in zip(gpu_trace, cpu_trace):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert gpu.io_stats == cpu.io_stats
+    assert gpu.eigenvectors.is_cuda
+
+
+@pytest.mark.gpu
+def test_transforms_on_card_match_cpu(cuda):
+    """Shift-invert (inner CG) and the Chebyshev filter through `solve` on
+    the card: the CPU's untransformed eigenvalues at rtol 1e-5, and the
+    same inner iterations."""
+    from repro_torch.core import (ChebyshevFilterOperator, GraphOperator,
+                                  ShiftInvertOperator, solve)
+    from repro_torch.graphs import rmat_spectral
+    n = 1200
+    r, c, v = rmat_spectral(n, 10000, seed=5)
+    tm = pack_tiles(n, n, r, c, v, block_shape=(64, 64), min_block_nnz=4)
+    x0 = np.random.default_rng(2).standard_normal((tm.shape[0], 4)).astype(
+        np.float32)
+    got = {}
+    for dev in ("cpu", cuda):
+        si = ShiftInvertOperator(GraphOperator(tm, device=dev), -1.5,
+                                 inner_solver="cg", cg_tol=1e-8,
+                                 cg_maxiter=500)
+        res = solve(si, 3, tol=1e-6, max_iters=100, block_size=4, x0=x0)
+        ch = ChebyshevFilterOperator(GraphOperator(tm, device=dev),
+                                     (-1.1, 0.6), degree=8)
+        res_ch = solve(ch, 2, tol=1e-6, max_iters=100, block_size=4, x0=x0)
+        got[str(dev)] = (res.eigenvalues, res_ch.eigenvalues,
+                         si.n_inner_iters)
+    (si_c, ch_c, it_c), (si_g, ch_g, it_g) = got["cpu"], got[str(cuda)]
+    np.testing.assert_allclose(si_g, si_c, rtol=1e-5)
+    np.testing.assert_allclose(ch_g, ch_c, rtol=1e-5)
+    assert abs(it_g - it_c) <= 0.02 * it_c
 
 
 def _safs_store(cuda, root, **opts):

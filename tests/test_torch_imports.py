@@ -35,7 +35,11 @@ def test_import_loads_no_jax_and_no_reference_module():
               "repro_torch.safs.pagefile", "repro_torch.safs.cache",
               "repro_torch.safs.prefetch", "repro_torch.safs.backend",
               "repro_torch.safs.scrub", "repro_torch.graphs.gio",
-              "repro_torch.examples", "repro_torch.examples.ooc_lanczos"):
+              "repro_torch.examples", "repro_torch.examples.ooc_lanczos",
+              "repro_torch.examples.spectral_cluster",
+              "repro_torch.core.lanczos", "repro_torch.core.lobpcg",
+              "repro_torch.core.svd", "repro_torch.benchmarks",
+              "repro_torch.benchmarks.bench_eigen"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -139,7 +143,8 @@ def test_model_entry_points_without_device_raise_without_cuda(monkeypatch):
 
 def test_ooc_lanczos_example_runs_on_the_cpu(tmp_path, capsys):
     """`python -m repro_torch.examples.ooc_lanczos --device cpu` at a small
-    size: SAFS and RAM spectra agree, and what is not ported raises."""
+    size: SAFS and RAM spectra agree for both solvers, and what is not
+    ported raises."""
     from repro_torch.examples import ooc_lanczos
     ooc_lanczos.main(["--n", "600", "--nnz", "5000", "--nev", "4",
                       "--device", "cpu", "--root", str(tmp_path / "p"),
@@ -147,7 +152,10 @@ def test_ooc_lanczos_example_runs_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "safs backend matches ram backend to rtol 1e-5" in out
     assert "physical disk I/O" in out and (tmp_path / "t.jsonl").exists()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ooc_lanczos.main(["--solver", "lanczos", "--device", "cpu"])
+    ooc_lanczos.main(["--n", "600", "--nnz", "5000", "--nev", "8",
+                      "--solver", "lanczos", "--device", "cpu",
+                      "--root", str(tmp_path / "l")])
+    assert "safs backend matches ram backend to rtol 1e-5" in \
+        capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 4"):
         ooc_lanczos.main(["--checkpoint", str(tmp_path), "--device", "cpu"])
