@@ -80,9 +80,13 @@ just before and read just after, each solver kernel launched at least
 once, and each width row's launches taken from the solve named here:
  14. widths (A): SpMM at k = 1, 2, 8 over the rmat-1M image, gram at
      (n, b)ᵀ(n, b) and tsgemm at (n, b)·(b, b) + C0 for b = 2, 8, and gram
-     at LOBPCG's (n, 24)ᵀ(n, 24), n = 2^20: against the plain version,
-     bit-identical run to run, one device kernel per call (gram,
-     tsgemm), timed as in 4 beside the library call and the bound;
+     at LOBPCG's (n, 16)ᵀ(n, 16) and (n, 24)ᵀ(n, 24), n = 2^20: against
+     the plain version, bit-identical run to run, one device kernel per
+     call (gram, tsgemm), the kernel variant that ran printed, timed as
+     in 4 beside the library call and the bound; each gram also as
+     gram(A, A), exactly symmetric and bit-identical over three calls;
+     each tsgemm bit-equal to the generic kernel on the same data 4 bytes
+     off a 16-byte boundary;
  15. Lanczos (B): `solve(op, 8, method="lanczos", block_size=4)`; each
      Ritz value within its residual bound of one of phase 5's (less that
      one's bound); its IOStats beside Krylov–Schur's;
@@ -92,7 +96,10 @@ once, and each width row's launches taken from the solve named here:
      (printed); converged or not (printed); its top eigenvalues within
      their true residuals of phase 5's positive ones (less their bounds);
      bytes per converged pair beside Krylov–Schur's; SpMM at k = 8, gram
-     at 8 and 24 columns, tsgemm at (8, 8);
+     at 8, 16 and 24 columns, tsgemm at (8, 8); then a profiled LOBPCG of
+     3 iterations: device ms and launches by kernel and variant (SpMM,
+     the COO gather and index_add_, gram, tsgemm, H2D, D2H), the COO path
+     event-bracketed, the idle share and the largest host spans;
  17. Chebyshev (D): `estimate_spectral_range` (SpMM at k = 1), a degree-10
      `ChebyshevFilterOperator` damping [lo, half the smallest of phase
      5's positive eigenvalues], Krylov–Schur on it for that many pairs:
@@ -110,7 +117,7 @@ once, and each width row's launches taken from the solve named here:
      eigenvalues at rtol 1e-5 of a `which="SA"` Krylov–Schur solve's, true
      residuals ≤ 1e-4, inner CG iterations printed.
 
-Then one JSON line of kernels (the four PR-15 rows, the eight width rows
+Then one JSON line of kernels (the four PR-15 rows, the nine width rows
 of 14, flash attention), the card line, and the final result line.
 """
 from __future__ import annotations
@@ -120,6 +127,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -518,6 +526,8 @@ def zero_counters() -> None:
     spmm_tile.LAUNCHES_BY_K.clear()
     gram.LAUNCHES_BY_SHAPE.clear()
     tsgemm.LAUNCHES_BY_SHAPE.clear()
+    gram.LAUNCHES_BY_VARIANT.clear()
+    tsgemm.LAUNCHES_BY_VARIANT.clear()
 
 
 def launches_by_width() -> dict:
@@ -530,6 +540,14 @@ def launches_by_width() -> dict:
                      sorted(gram.LAUNCHES_BY_SHAPE.items())},
             "tsgemm": {f"{m}x{b}": v for (m, b), v in
                        sorted(tsgemm.LAUNCHES_BY_SHAPE.items())}}
+
+
+def launches_by_variant() -> dict:
+    """gram's and tsgemm's launches since the counters were zeroed, by the
+    kernel variant that ran (gram.variant, tsgemm.variant)."""
+    from repro_torch.kernels import gram, tsgemm
+    return {"gram": dict(sorted(gram.LAUNCHES_BY_VARIANT.items())),
+            "tsgemm": dict(sorted(tsgemm.LAUNCHES_BY_VARIANT.items()))}
 
 
 def read_counters(rows) -> dict:
@@ -846,12 +864,26 @@ def breakdown(torch, op, label: str, restarts: int = 3) -> None:
 
 # ------------------------------------------------------------------ family
 
+def ran_variant(mod, fn):
+    """fn() and the one kernel variant of `mod` (gram, tsgemm) it ran."""
+    before = dict(mod.LAUNCHES_BY_VARIANT)
+    out = fn()
+    ran = [k for k, v in mod.LAUNCHES_BY_VARIANT.items()
+           if v != before.get(k, 0)]
+    if len(ran) != 1:
+        fail(f"one call ran the variants {ran}, not one")
+    return out, ran[0]
+
+
 def dense_width_row(torch, timer, dev, kind: str, m: int, b: int,
                     n: int = 2 ** 20):
     """gram (n, m)ᵀ(n, b) or tsgemm (n, m)·(m, b) + C0 at a width the rest
     of the solver family gives it, against its plain version: one device
-    kernel per call, bit-identical over three calls, timed flushed and
-    clean beside the library call and the bound."""
+    kernel per call, bit-identical over three calls, the variant that ran,
+    timed flushed and clean beside the library call and the bound. gram
+    also as gram(A, A): exactly symmetric and bit-identical over three
+    calls. tsgemm also bit-equal to the generic kernel, which takes the
+    same data 4 bytes off a 16-byte boundary."""
     from repro_torch.kernels import gram as gram_mod
     from repro_torch.kernels import ops
     from repro_torch.kernels import tsgemm as tsgemm_mod
@@ -885,25 +917,57 @@ def dense_width_row(torch, timer, dev, kind: str, m: int, b: int,
         def lib_call():
             return torch.addmm(c0, a, small, beta=1.0, alpha=-1.0)
     name = f"{kind}_b{b}"
-    got = call()
+    got, variant = ran_variant(mod, call)
     if not all(torch.equal(got, call()) for _ in range(2)):
         fail(f"{name} is not bit-identical from run to run")
     want = call("ref")
     err = rel_err(got, want, scale)
     abs_err = float((got - want).abs().max())
     del want, scale
+    if kind == "gram":   # gram(A, A): G = AᵀA, as LOBPCG's G and SVQB's
+        g_aa = ops.gram(a, a)
+        if not all(torch.equal(g_aa, ops.gram(a, a)) for _ in range(2)):
+            fail(f"{name}: gram(A, A) is not bit-identical from run to run")
+        if not torch.equal(g_aa, g_aa.T):
+            fail(f"{name}: gram(A, A) is not exactly symmetric")
+        err = max(err, rel_err(g_aa, ops.gram(a, a, impl="ref"),
+                               a.abs().T @ a.abs()))
+        # its diagonal sums n positive products: the kernel's and the
+        # library call's float32 error against the float64 sum
+        exact = a.double().T @ a.double()
+        lib_aa = torch.matmul(a.T, a)
+        e64 = [rel_err(x, exact, a.abs().double().T @ a.abs().double())
+               for x in (g_aa, lib_aa)]
+        extra = (f"gram(A, A) exactly symmetric and bit-identical, against "
+                 f"its float64 sum {e64[0]:.3e} (torch.matmul {e64[1]:.3e})"
+                 f" of Σ|terms|")
+        del g_aa, exact, lib_aa
+    else:                # the generic kernel on rows 4 bytes off 16
+        a_off = torch.empty(n * m + 1, device=dev)[1:].view(n, m)
+        c0_off = torch.empty(n * b + 1, device=dev)[1:].view(n, b)
+        a_off.copy_(a)
+        c0_off.copy_(c0)
+        oracle, oracle_kind = ran_variant(mod, lambda: ops.tsgemm(
+            a_off, small, alpha=-1.0, beta=1.0, c0=c0_off))
+        if oracle_kind != "generic" or not torch.equal(got, oracle):
+            fail(f"{name} ({variant}) differs from the generic kernel "
+                 f"({oracle_kind}) bit for bit")
+        extra = "bit-equal to the generic kernel"
+        del a_off, c0_off, oracle
     per_call = kernels_per_call(torch, call)
     ms = timer.ms(call)
     clean_ms = timer.ms(call, clean=True)
     plain = timer.ms(lambda: call("ref"))
     lib_ms = timer.ms(lib_call)
+    lib_clean = timer.ms(lib_call, clean=True)
     bms, by = bound_ms(nbytes, flops)
-    log(f"kernel {name}: {shape} (the generic kernel) | rel err {err:.3e} "
+    log(f"kernel {name}: {shape}, variant {variant} | rel err {err:.3e} "
         f"(tol {KERNEL_TOL:g} of Σ|terms|), max abs err {abs_err:.3e}, "
-        f"bit-identical run to run | device kernels per call {per_call:g} | "
-        f"{ms:.4f} ms ({clean_ms:.4f} with L2 clean), plain {plain:.4f} ms, "
-        f"library {lib_name} {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}) = "
-        f"{bms / clean_ms:.2f} of the clean time")
+        f"bit-identical run to run, {extra} | device kernels per call "
+        f"{per_call:g} | {ms:.4f} ms ({clean_ms:.4f} with L2 clean), plain "
+        f"{plain:.4f} ms, library {lib_name} {lib_ms:.4f} ms ({lib_clean:.4f}"
+        f" clean), bound {bms:.4f} ms ({by}) = {bms / clean_ms:.2f} of the "
+        f"clean time")
     if not err <= KERNEL_TOL:
         fail(f"{name} disagrees with its plain version: {err}")
     if per_call != 1:
@@ -921,8 +985,8 @@ def dense_width_row(torch, timer, dev, kind: str, m: int, b: int,
 def width_phase(torch, op, timer):
     """Phase A: the kernels at the widths the rest of the solver family
     gives them (SpMM k = 1, 2, 8 over the rmat-1M image; gram and tsgemm
-    at b = 2 and 8, and gram at LOBPCG's 24-column G and H), before any
-    solve uses them."""
+    at b = 2 and 8, and gram at LOBPCG's 16- and 24-column G and H),
+    before any solve uses them."""
     dev = op.device
     gen = torch.Generator(device=dev).manual_seed(12)
     rows = [spmm_phase(torch, op, timer, torch.randn(
@@ -931,7 +995,8 @@ def width_phase(torch, op, timer):
     for b in FAMILY_B:
         rows.append(dense_width_row(torch, timer, dev, "gram", b, b))
         rows.append(dense_width_row(torch, timer, dev, "tsgemm", b, b))
-    rows.append(dense_width_row(torch, timer, dev, "gram", 3 * NEV, 3 * NEV))
+    for b in (2 * NEV, 3 * NEV):
+        rows.append(dense_width_row(torch, timer, dev, "gram", b, b))
     torch.cuda.synchronize()
     return rows
 
@@ -955,7 +1020,8 @@ def counted_solve(torch, op, label: str, *args, **kw):
     widths = launches_by_width()
     log(f"{label}: solve wall {wall:.3f} s | converged {res.converged} | "
         f"restarts/iterations {res.n_restarts} | operator applications "
-        f"{res.n_ops} | launches by width {json.dumps(widths)}")
+        f"{res.n_ops} | launches by width {json.dumps(widths)} | by "
+        f"variant {json.dumps(launches_by_variant())}")
     log(f"{label}: eigenvalues {np.array2string(res.eigenvalues, precision=8)}"
         f" | residuals {np.array2string(res.residuals, precision=3)}")
     log(f"{label}: IOStats {json.dumps(res.io_stats)}")
@@ -1055,6 +1121,7 @@ def lobpcg_phase(torch, op, res_ks) -> dict:
     if not np.all(gap <= rs):
         fail(f"lobpcg's top eigenvalues beyond their residuals of phase 5's:"
              f" {gap} > {rs}")
+    lobpcg_breakdown(torch, op)
     return widths
 
 
@@ -1104,15 +1171,12 @@ def chebyshev_phase(torch, op, res_ks) -> dict:
     return widths
 
 
-def coo_share(torch, op, ch) -> None:
-    """One profiled application of the filter: device time by kind, and
-    the COO side path's share of it, its kernels bracketed by CUDA events
-    on the stream (a wrapper around the operator's coo_spmm_ref)."""
-    from torch.profiler import ProfilerActivity, profile
+@contextlib.contextmanager
+def coo_events(torch):
+    """CUDA events on the stream around every call of the operator's COO
+    side path (core/operator.py's coo_spmm_ref, wrapped for the block);
+    yields the list of (start, end) pairs."""
     from repro_torch.core import operator as operator_mod
-    x = torch.randn((op.n, BLOCK_SIZE), device=op.device,
-                    generator=torch.Generator(device=op.device).manual_seed(3))
-    ch.matmat(x)
     plain = operator_mod.coo_spmm_ref
     marks = []
 
@@ -1127,16 +1191,27 @@ def coo_share(torch, op, ch) -> None:
 
     operator_mod.coo_spmm_ref = bracketed
     try:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            ch.matmat(x)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+        yield marks
     finally:
         operator_mod.coo_spmm_ref = plain
-    cats, others = _device_ms_by_kind(prof, {
+
+
+def coo_share(torch, op, ch) -> None:
+    """One profiled application of the filter: device time by kind, and
+    the COO side path's share of it, its kernels bracketed by CUDA events
+    on the stream."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn((op.n, BLOCK_SIZE), device=op.device,
+                    generator=torch.Generator(device=op.device).manual_seed(3))
+    ch.matmat(x)
+    torch.cuda.synchronize()
+    with coo_events(torch) as marks, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ch.matmat(x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cats, _, others = _device_ms_by_kind(prof, {
         "spmm_blocksparse": ("spmm_blocksparse",)})
     busy = sum(cats.values())
     coo = sum(s.elapsed_time(e) for s, e in marks)
@@ -1152,6 +1227,76 @@ def coo_share(torch, op, ch) -> None:
         f"{coo / busy:.3f} of device busy, {coo / wall:.3f} of the wall | "
         f"largest other kernels (ms, count, name): "
         + "; ".join(f"{ms:.3f}, {cnt}, {name}" for ms, cnt, name in others))
+
+
+def kernel_variant(name: str) -> str | None:
+    """"gram tile24x24", "tsgemm vec8x8", "gram generic", ... for a device
+    kernel's (demangled) name; None for any other kernel."""
+    hit = re.search(r"\b(gram|tsgemm)_(?:(tile|vec|pair2)_)?kernel"
+                    r"(?:<(\d+), ?(\d+)>)?", name)
+    if hit is None:
+        return None
+    kernel, kind, m, b = hit.groups()
+    if kind is None:
+        return f"{kernel} generic"
+    return f"{kernel} pair2x2" if kind == "pair2" else \
+        f"{kernel} {kind}{m}x{b}"
+
+
+def lobpcg_breakdown(torch, op, iters: int = 3) -> None:
+    """A profiled LOBPCG (nev 8, tol 0: every iteration runs) of `iters`
+    iterations on a fresh RAM-tier store: device ms and launches by kernel,
+    gram and tsgemm by variant, the COO path's gather and index_add_, H2D
+    and D2H; the COO path event-bracketed; the idle share; the wrappers'
+    launches by variant; the largest host spans."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import TieredStore, solve
+    from repro_torch.obs import Tracer, tracing
+    store = TieredStore(device=op.device)
+    op.store = store
+    tracer = Tracer()
+    zero_counters()
+    torch.cuda.synchronize()
+    with coo_events(torch) as marks, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with tracing(tracer):
+            res = solve(op, NEV, method="lobpcg", tol=0.0, max_iters=iters,
+                        store=store)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ms, count, others = _device_ms_by_kind(prof, {
+        "spmm_blocksparse": ("spmm_blocksparse",),
+        "COO gather": ("gather",),
+        "COO index_add_": ("indexFunc", "index_add"),
+        "Memcpy HtoD": ("Memcpy HtoD",), "Memcpy DtoH": ("Memcpy DtoH",)},
+        label=kernel_variant)
+    busy = sum(ms.values())
+    if busy <= 0:
+        log("lobpcg breakdown: the profiler reported no device time (not "
+            "measured)")
+        busy = float("nan")
+    coo = sum(s.elapsed_time(e) for s, e in marks)
+    host = {}
+    for rec in tracer.records():
+        if rec["type"] == "span":
+            host[rec["name"]] = host.get(rec["name"], 0.0) + rec["dur"] / 1e3
+    top = sorted(host.items(), key=lambda kv: -kv[1])[:6]
+    order = sorted(ms, key=lambda k: -ms[k])
+    log(f"lobpcg breakdown (max_iters {iters}, n_restarts "
+        f"{res.n_restarts}, profiled): wall "
+        f"{wall:.1f} ms | device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall:.3f} | device ms by kind "
+        f"{json.dumps({k: round(ms[k], 3) for k in order})}")
+    log(f"lobpcg breakdown: device launches by kind "
+        f"{json.dumps({k: count[k] for k in order})} | the wrappers' "
+        f"launches by variant {json.dumps(launches_by_variant())} | COO "
+        f"side path (event-bracketed, {len(marks)} calls) {coo:.2f} ms = "
+        f"{coo / busy:.3f} of device busy")
+    log(f"lobpcg breakdown: largest other device kernels (ms, count, name): "
+        + "; ".join(f"{t:.3f}, {c}, {nm}" for t, c, nm in others))
+    log(f"lobpcg breakdown: largest host spans ms "
+        f"{json.dumps({k: round(v, 3) for k, v in top})}")
 
 
 def svd_phase(torch, dev) -> dict:
@@ -1395,22 +1540,26 @@ def serve(torch, dev, rows, card_line: str):
     return launches
 
 
-def _device_ms_by_kind(prof, kinds):
-    """Device ms per kind (first kind whose name pattern matches a kernel
-    name, else "other") and the largest "other" kernels."""
+def _device_ms_by_kind(prof, kinds, label=lambda name: None):
+    """Device ms and launches per kind (`label(name)` where it names one,
+    else the first kind whose name pattern matches a kernel name, else
+    "other") and the largest "other" kernels."""
     cats = {k: 0.0 for k in kinds}
     cats["other"] = 0.0
+    counts = dict.fromkeys(cats, 0)
     others = []
     for evt in prof.key_averages():
         if "CUDA" not in str(getattr(evt, "device_type", "")):
             continue
         ms = float(evt.self_device_time_total) / 1e3
-        key = next((k for k, pats in kinds.items()
-                    if any(p in evt.key for p in pats)), "other")
-        cats[key] += ms
+        key = label(evt.key) or next((k for k, pats in kinds.items()
+                                      if any(p in evt.key for p in pats)),
+                                     "other")
+        cats[key] = cats.get(key, 0.0) + ms
+        counts[key] = counts.get(key, 0) + evt.count
         if key == "other":
             others.append((ms, evt.count, evt.key[:60]))
-    return cats, sorted(others, reverse=True)[:5]
+    return cats, counts, sorted(others, reverse=True)[:5]
 
 
 def serve_breakdown(torch, tf, params, cfg, prompt, steps: int = 4) -> None:
@@ -1440,7 +1589,7 @@ def serve_breakdown(torch, tf, params, cfg, prompt, steps: int = 4) -> None:
                     tf.decode_step(params, cfg, cache, tok, t)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        cats, others = _device_ms_by_kind(prof, kinds)
+        cats, _, others = _device_ms_by_kind(prof, kinds)
         busy = sum(cats.values())
         n = 1 if phase == "prefill" else steps
         log(f"serve breakdown ({phase}, profiled, {n} call(s)): wall "
@@ -1567,7 +1716,8 @@ def main() -> None:
     for r in family:
         kernel, width = r["name"].rsplit("_", 1)
         phase = {"k1": "chebyshev", "k2": "svd", "k8": "lobpcg",
-                 "b2": "svd", "b8": "lobpcg", "b24": "lobpcg"}[width]
+                 "b2": "svd", "b8": "lobpcg", "b16": "lobpcg",
+                 "b24": "lobpcg"}[width]
         key = width if kernel == "spmm_blocksparse" else \
             f"{width[1:]}x{width[1:]}"
         r["launches"] = widths[phase][kernel].get(key, 0)

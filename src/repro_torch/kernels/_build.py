@@ -36,8 +36,8 @@ SIGNATURES = {
     "repro_spmm_blocksparse_bf16": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
                                     _I, _I, _I, _P],
     "repro_gram_f32": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _F, _I,
-                       _P],
-    "repro_tsgemm_f32": [_P, _P, _P, _P, _LL, _I, _I, _F, _F, _I, _P],
+                       _I, _P],
+    "repro_tsgemm_f32": [_P, _P, _P, _P, _LL, _I, _I, _F, _F, _I, _I, _P],
     "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _F, _I, _P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -137,6 +137,12 @@ def device_and_stream(t) -> tuple[int, int]:
     the tensor's device: every kernel launches there, unsynchronized."""
     import torch
     return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned16(*tensors) -> bool:
+    """Every tensor's data on a 16-byte boundary (float4 loads and
+    16-byte copies need it)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def check(err: int, name: str) -> None:

@@ -9,8 +9,9 @@ rows sum their chunks in another order than the plain version; bf16
 blocks are widened exactly, so the same holds for them) and TSGEMM; a
 Gram entry sums n products, so its difference is held to 1e-6
 of the sum of the products' magnitudes. The solver family's widths
-(SpMM at k = 1, 2, 8; the generic gram and tsgemm at b = 2 and 8) are
-held the same way, and
+(SpMM at k = 1, 2, 8; gram's tile kernels at 2, 8, 16 and 24 columns,
+with gram(A, A) exactly symmetric; tsgemm's vec8x8 and pair2x2, also
+bit for bit against the generic kernel) are held the same way, and
 LOBPCG and the spectral transforms on the card to the same solves on
 the CPU's plain versions (rtol 1e-5). Flash attention is held to its
 plain version run in float32 on the same inputs: 2e-5 of the output's
@@ -200,10 +201,15 @@ def _gram_case(cuda, n, m, b, seed):
     return a, bb
 
 
-def _gram_ok(got, a, bb, alpha):
-    want = ops.gram(a, bb, alpha=alpha, impl="ref").cpu().double()
+def _gram_ok(got, a, bb, alpha, exact=False):
+    """Within RTOL of Σ|terms| of the plain version, or with `exact` of
+    the same products summed in float64."""
+    if exact:
+        want = alpha * a.double().T @ bb.double()
+    else:
+        want = ops.gram(a, bb, alpha=alpha, impl="ref").double()
     absdot = abs(alpha) * a.abs().T.double() @ bb.abs().double()
-    assert torch.all((got.cpu().double() - want).abs() <= RTOL * absdot.cpu())
+    assert torch.all((got.double() - want).abs() <= RTOL * absdot)
 
 
 @pytest.mark.gpu
@@ -237,31 +243,122 @@ def test_gram_kernel_one_launch_bit_identical(cuda, n, m, b):
 def test_gram_ticket_counter_on_one_and_two_streams(cuda):
     """The last-CTA ticket counter is one per (device, stream) and back at
     0 after every launch: back-to-back grams on one stream, and grams
-    interleaved on two streams, each give the bits of a lone call."""
-    a, bb = _gram_case(cuda, 2 ** 20, 4, 4, seed=71)
-    c, d = _gram_case(cuda, 300_000, 4, 4, seed=72)
-    e, f = _gram_case(cuda, 5000, 3, 5, seed=73)
-    want = [ops.gram(a, bb), ops.gram(c, d), ops.gram(e, f)]
+    interleaved on two streams, each give the bits of a lone call, over
+    a mix of the kernels (vec4x4, generic, tile24x24, tile2x2, tile8x8)."""
+    cases = [_gram_case(cuda, *shape, seed=71 + i) for i, shape in
+             enumerate([(2 ** 20, 4, 4), (300_000, 4, 4), (5000, 3, 5),
+                        (70_001, 24, 24), (2 ** 20 + 1, 2, 2),
+                        (9000, 8, 8)])]
+    before = dict(gram.LAUNCHES_BY_VARIANT)
+    want = [ops.gram(x, y) for x, y in cases]
     torch.cuda.synchronize()
-    got = [ops.gram(a, bb), ops.gram(c, d), ops.gram(e, f), ops.gram(a, bb)]
+    ran = {k: v - before.get(k, 0) for k, v in gram.LAUNCHES_BY_VARIANT.items()}
+    assert ran == {"vec4x4": 2, "generic": 1, "tile24x24": 1, "tile2x2": 1,
+                   "tile8x8": 1}
+    order = [0, 3, 1, 4, 2, 5, 0, 3]
+    got = [ops.gram(*cases[i]) for i in order]
     torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(got, want + want[:1]))
+    assert all(torch.equal(g, want[i]) for g, i in zip(got, order))
     s1, s2 = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
     for s in (s1, s2):
         s.wait_stream(torch.cuda.current_stream(cuda))
+    first, second = [0, 3, 4], [1, 2, 5]
     outs1, outs2 = [], []
-    for _ in range(4):
+    for _ in range(3):
         with torch.cuda.stream(s1):
-            outs1.append(ops.gram(a, bb))
+            outs1 += [ops.gram(*cases[i]) for i in first]
         with torch.cuda.stream(s2):
-            outs2.append(ops.gram(c, d))
-            outs2.append(ops.gram(e, f))
+            outs2 += [ops.gram(*cases[i]) for i in second]
     torch.cuda.synchronize()
-    assert all(torch.equal(o, want[0]) for o in outs1)
-    assert all(torch.equal(o, want[1 + i % 2]) for i, o in enumerate(outs2))
+    assert all(torch.equal(o, want[first[i % 3]])
+               for i, o in enumerate(outs1))
+    assert all(torch.equal(o, want[second[i % 3]])
+               for i, o in enumerate(outs2))
     keys = {(cuda.index or 0, s.cuda_stream) for s in (s1, s2)}
     counters = [gram._COUNTERS[k] for k in keys]
     assert counters[0].data_ptr() != counters[1].data_ptr()
+    assert all(int(t.item()) == 0 for t in gram._COUNTERS.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [
+    (2 ** 20 + 1, 24), (2 ** 20, 8), (4097, 16), (1, 24), (100, 8),
+    (2 ** 20, 2), (2 ** 20 + 1, 2), (3, 2), (3 * 2 ** 21 + 7, 16)])
+def test_gram_tile_kernels(cuda, n, m):
+    """The tile kernels at the solver family's widths: one launch of
+    tile<m>x<m> per call, bit-identical over 3 calls, within RTOL of
+    Σ|terms| of the plain version, and gram(A, A) exactly symmetric and
+    bit-identical too (G[p, q] and G[q, p] sum the same products in the
+    same order). n = 2^20 + 1 at 2 columns starts odd intervals 8 bytes
+    off a 16-byte boundary; n = 1, 3 and 100 are below one tile. The
+    diagonal of gram(A, A) sums n positive products, so Σ|terms| is the
+    sum itself: there the oracle is the float64 sum of the products, since
+    at n in the millions the plain version's float32 product on the card
+    (cuBLAS) strays from it by more than RTOL, where the kernels do not."""
+    a, bb = _gram_case(cuda, n, m, m, seed=n % 1000 + m)
+    kind = f"tile{m}x{m}"
+    for x, y in ((a, bb), (a, a)):
+        outs = []
+        for _ in range(3):
+            before = (gram.LAUNCHES, gram.LAUNCHES_BY_VARIANT.get(kind, 0))
+            outs.append(ops.gram(x, y, alpha=-0.5))
+            assert (gram.LAUNCHES, gram.LAUNCHES_BY_VARIANT[kind]) == \
+                (before[0] + 1, before[1] + 1)
+        assert outs[0].shape == (m, m)
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+        _gram_ok(outs[0], x, y, -0.5, exact=y is x)
+    assert torch.equal(outs[0], outs[0].T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(2 ** 20, 8), (1001, 8), (1, 8),
+                                 (2 ** 20 + 1, 2), (4, 2), (1, 2)])
+@pytest.mark.parametrize("with_c0", [True, False])
+def test_tsgemm_fast_paths_bit_equal_generic(cuda, n, m, with_c0):
+    """vec8x8 and pair2x2 (odd n: a last row alone) give the generic
+    kernel's bits: the same data 4 bytes off a 16-byte boundary takes the
+    generic kernel, and the results are equal, bit for bit."""
+    g = np.random.default_rng(n % 991 + m)
+    a = _t(g.standard_normal((n, m)).astype(np.float32)).to(cuda)
+    small = _t(g.standard_normal((m, m)).astype(np.float32)).to(cuda)
+    c0 = (_t(g.standard_normal((n, m)).astype(np.float32)).to(cuda)
+          if with_c0 else None)
+    kind = "vec8x8" if m == 8 else "pair2x2"
+    before = dict(tsgemm.LAUNCHES_BY_VARIANT)
+    got = ops.tsgemm(a, small, alpha=-1.25, beta=0.75, c0=c0)
+    a_off = torch.empty(n * m + 1, device=cuda)[1:].view(n, m)
+    a_off.copy_(a)
+    c0_off = None
+    if with_c0:
+        c0_off = torch.empty(n * m + 1, device=cuda)[1:].view(n, m)
+        c0_off.copy_(c0)
+    oracle = ops.tsgemm(a_off, small, alpha=-1.25, beta=0.75, c0=c0_off)
+    ran = {k: v - before.get(k, 0)
+           for k, v in tsgemm.LAUNCHES_BY_VARIANT.items()}
+    assert {k: v for k, v in ran.items() if v} == {kind: 1, "generic": 1}
+    assert torch.equal(got, oracle)
+    _close(got.cpu(), ops.tsgemm(a, small, alpha=-1.25, beta=0.75, c0=c0,
+                                 impl="ref").cpu())
+
+
+@pytest.mark.gpu
+def test_a_variant_that_does_not_fit_raises(cuda, monkeypatch):
+    """The C side launches only what fits: a compiled width named for
+    another shape, or for a pointer off 16 bytes, is refused and the
+    wrapper raises; nothing runs and the ticket counter stays at 0."""
+    a, bb = _gram_case(cuda, 5000, 8, 8, seed=5)
+    small = torch.ones((8, 8), device=cuda)
+    monkeypatch.setattr(gram, "variant", lambda m, b, ok: "tile24x24")
+    with pytest.raises(RuntimeError, match="tile24x24"):
+        ops.gram(a, bb)
+    monkeypatch.setattr(tsgemm, "variant", lambda m, b, ok: "pair2x2")
+    with pytest.raises(RuntimeError, match="pair2x2"):
+        ops.tsgemm(a, small)
+    monkeypatch.setattr(gram, "variant", lambda m, b, ok: "tile8x8")
+    a_off = torch.empty(5000 * 8 + 1, device=cuda)[1:].view(5000, 8)
+    with pytest.raises(RuntimeError, match="tile8x8"):
+        ops.gram(a_off, bb)
+    torch.cuda.synchronize()
     assert all(int(t.item()) == 0 for t in gram._COUNTERS.values())
 
 
@@ -330,8 +427,8 @@ def test_small_solve_on_card_matches_cpu(cuda):
 def test_solver_family_widths_vs_plain_on_card(cuda, kind, width):
     """The widths the rest of the solver family brings: SpMM at k = 1
     (estimate_spectral_range), 2 (the SVD) and 8 (LOBPCG at nev 8), on an
-    image with split heavy rows; the generic gram kernel at (n, 2)ᵀ(n, 2)
-    and (n, 8)ᵀ(n, 8); the generic tsgemm at (n, 2)·(2, 2) and
+    image with split heavy rows; gram's tile kernels at (n, 2)ᵀ(n, 2)
+    and (n, 8)ᵀ(n, 8); tsgemm's pair2x2 and vec8x8 at (n, 2)·(2, 2) and
     (n, 8)·(8, 8) with C0. One launch each, bit-identical over 3 calls,
     within tolerance of the plain version."""
     g = np.random.default_rng(100 + width)

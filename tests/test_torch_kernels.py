@@ -363,6 +363,7 @@ def test_spmm_plan_applied_in_order_matches_plain(chunk):
 @pytest.mark.parametrize("n,m,b", [
     (1024, 24, 4), (512, 8, 8), (768, 64, 2), (256, 4, 1),
     (1000, 4, 4), (333, 5, 3),            # ragged n
+    (1025, 24, 24), (1001, 8, 8), (333, 2, 2),   # the solver family's
 ])
 def test_tsgemm_plain_vs_reference(n, m, b, rng):
     a = rng.standard_normal((n, m)).astype(np.float32)
@@ -379,6 +380,7 @@ def test_tsgemm_plain_vs_reference(n, m, b, rng):
 @pytest.mark.parametrize("n,m,b", [
     (1024, 24, 4), (512, 16, 16), (640, 8, 2),
     (1000, 4, 4), (4097, 3, 5),           # ragged n
+    (1025, 24, 24), (512, 8, 8), (333, 2, 2),    # the solver family's
 ])
 def test_gram_plain_vs_reference(n, m, b, rng):
     a = rng.standard_normal((n, m)).astype(np.float32)
@@ -399,6 +401,72 @@ def test_gram_row_partition_covers_n(n):
     assert 1 <= parts <= gram_kernel.MAX_PARTS
     assert (parts - 1) * rows < n <= parts * rows
     assert gram_kernel.row_partition(n) == (parts, rows)
+
+
+@pytest.mark.parametrize("kernel,m,b,aligned,want", [
+    ("gram", 4, 4, True, "vec4x4"),       # Krylov–Schur
+    ("gram", 2, 2, True, "tile2x2"),      # the SVD
+    ("gram", 8, 8, True, "tile8x8"),      # LOBPCG
+    ("gram", 16, 16, True, "tile16x16"),
+    ("gram", 24, 24, True, "tile24x24"),
+    ("gram", 24, 24, False, "generic"),   # a pointer off 16 bytes
+    ("gram", 4, 4, False, "generic"),
+    ("gram", 2, 2, False, "generic"),
+    ("gram", 24, 8, True, "generic"),     # widths not compiled
+    ("gram", 8, 24, True, "generic"),
+    ("gram", 4, 8, True, "generic"),
+    ("gram", 3, 5, True, "generic"),
+    ("gram", 32, 32, True, "generic"),
+    ("tsgemm", 4, 4, True, "vec4x4"),
+    ("tsgemm", 4, 8, True, "vec4x8"),
+    ("tsgemm", 8, 8, True, "vec8x8"),
+    ("tsgemm", 2, 2, True, "pair2x2"),
+    ("tsgemm", 8, 8, False, "generic"),
+    ("tsgemm", 2, 2, False, "generic"),
+    ("tsgemm", 4, 4, False, "generic"),
+    ("tsgemm", 24, 8, True, "generic"),
+    ("tsgemm", 8, 4, True, "generic"),
+    ("tsgemm", 16, 16, True, "generic"),
+    ("tsgemm", 5, 3, True, "generic"),
+])
+def test_kernel_variant_by_shape_and_alignment(kernel, m, b, aligned, want):
+    mod = gram_kernel if kernel == "gram" else tsgemm_kernel
+    assert mod.variant(m, b, aligned) == want
+    assert want in mod.VARIANTS
+
+
+@pytest.mark.parametrize("mod,src", [(gram_kernel, "gram.cu"),
+                                     (tsgemm_kernel, "tsgemm.cu")])
+def test_kernel_variant_ids_match_the_cuda_source(mod, src):
+    """The ids the wrapper passes are the ids the C entry point switches
+    on (`kVec4x4 = 1` in the source is "vec4x4": 1 in VARIANTS)."""
+    import re
+    from repro_torch.kernels import _build
+    text = (_build.CSRC / src).read_text()
+    decl = re.search(r"constexpr int (kGeneric = 0[^;]*);", text).group(1)
+    ids = {name.lower(): int(v)
+           for name, v in re.findall(r"k(\w+) = (\d+)", decl)}
+    assert ids == mod.VARIANTS
+    for name in ids:
+        if name != "generic":
+            assert f"case k{name[0].upper()}{name[1:]}:" in text
+
+
+def test_alignment_of_views_picks_the_generic_kernel():
+    """A view that starts 4 or 8 bytes into its buffer is off a 16-byte
+    boundary, so the wrappers' `aligned16` sends it to "generic"; a whole
+    tensor and a view 16 bytes in are aligned."""
+    from repro_torch.kernels import _build
+    buf = torch.zeros(4 * 1000 + 8)
+    whole = buf[:8 * 500].view(500, 8)
+    assert _build.aligned16(whole)
+    for off, ok in ((1, False), (2, False), (4, True)):
+        view = buf[off:off + 8 * 500].view(500, 8)
+        assert _build.aligned16(view) is ok
+        assert _build.aligned16(whole, view) is ok
+        want = "tile8x8" if ok else "generic"
+        assert gram_kernel.variant(8, 8, _build.aligned16(whole, view)) \
+            == want
 
 
 def test_cpu_tensors_take_plain_version_and_never_launch(rng):
