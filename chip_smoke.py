@@ -117,6 +117,39 @@ once, and each width row's launches taken from the solve named here:
      eigenvalues at rtol 1e-5 of a `which="SA"` Krylov–Schur solve's, true
      residuals ≤ 1e-4, inner CG iterations printed.
 
+Checkpoint/resume, tracing and the quickstart, after 17 on the rmat-1M
+image (20-22) and after 19 (23); every solve with the launch counters
+zeroed just before and read just after, each solver kernel launched:
+ 20. suspend and resume on the RAM tier, under deterministic algorithms
+     (the COO side path's `index_add_` then sums in a fixed order; the
+     CholQR's small cuBLAS products need `CUBLAS_WORKSPACE_CONFIG`, set
+     below before CUDA starts): phase 5's solve uninterrupted, again with
+     `CheckpointPolicy(every_restarts=1)`, then with a stand-in guard
+     armed after restart 2, which must raise `SolveSuspended`, then
+     `solve(..., resume=root)`: eigenvalues and eigenvectors bit-equal to
+     the uninterrupted solve's, the same restarts, `resumed_step` the
+     suspension's step, true residuals ≤ 1e-4; the same for phase 16's
+     LOBPCG (`every_restarts=5`, the guard armed after iteration 10): θ
+     and X bit-equal, the same iterations; bytes and seconds per snapshot
+     (`ckpt.save` spans), the root's filesystem, the walls with and
+     without snapshots;
+ 21. crash and resume on SAFS: phase 9's solve with a `FaultPlan` crash
+     at the third `ckpt.save`, which must raise `CrashPoint` with state
+     steps [1, 2] and step 3 among the page snapshots; a resume into a
+     fresh page root from step 2, converged with true residuals ≤ 1e-4,
+     each eigenvalue at rtol 1e-5 of the nearest of phase 5's (±1 are
+     eigenvalues many times over), restarts at most one above
+     phase 9's; then one bit flipped in a page file of the crashed store
+     at rest, a scrub that must quarantine that page, and
+     `repair_from_checkpoint` from the surviving snapshot, which must
+     repair it (a second scrub clean, the integrity counters printed);
+ 22. traced solve: phase 5's solve with `trace=<path>` beside an untraced
+     one: `repro_torch.obs.report.validate` must find no problem and
+     `reconcile(...)["exact"]` must hold; the walls and the report's
+     phase table printed;
+ 23. quickstart: `repro_torch.examples.quickstart` on the card (n = 5,000
+     against scipy's eigsh), converged, its IOStats printed.
+
 Then one JSON line of kernels (the four PR-15 rows, the nine width rows
 of 14, flash attention), the card line, and the final result line.
 """
@@ -137,6 +170,10 @@ import time
 import warnings
 
 import numpy as np
+
+# deterministic algorithms (phases 10 and 20) refuse cuBLAS calls unless
+# this is set before cuBLAS makes its first handle
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -641,9 +678,9 @@ def span_rates(tracer) -> dict:
     return out
 
 
-def safs_subspace_phase(torch, op, rows, res_ram, wall_ram) -> None:
+def safs_subspace_phase(torch, op, rows, res_ram, wall_ram):
     """The main solve with the subspace in SAFS page files on the card's
-    host, the image resident on the card."""
+    host, the image resident on the card. Returns its result."""
     from repro_torch.core import TieredStore
     from repro_torch.obs import Tracer
     from repro_torch.safs import Scrubber
@@ -688,6 +725,7 @@ def safs_subspace_phase(torch, op, rows, res_ram, wall_ram) -> None:
         store.close()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return res
 
 
 def safs_stream_phase(torch, dev, rows):
@@ -1381,6 +1419,314 @@ def shift_invert_phase(torch, dev, tm) -> dict:
     return widths
 
 
+# ------------------------------------------------------- checkpoints
+
+KS_SOLVE = dict(method="krylov_schur", block_size=BLOCK_SIZE,
+                num_blocks=NUM_BLOCKS, tol=TOL, max_iters=MAX_ITERS)
+LOBPCG_SOLVE = dict(method="lobpcg", tol=LOBPCG_TOL, max_iters=LOBPCG_MAX)
+
+
+class Guard:
+    """A stand-in preemption guard, armed after `after` solver callbacks
+    (a signal handler is what `ft.PreemptionGuard` arms; here a count
+    does, so the suspension lands on a known boundary)."""
+
+    def __init__(self, after: int):
+        self.after, self.n, self.armed = after, 0, False
+
+    def requested(self) -> bool:
+        return self.armed
+
+    def cb(self, step, theta, res) -> None:
+        self.n += 1
+        self.armed = self.armed or self.n == self.after
+
+
+def ckpt_solve(torch, op, label: str, store=None, expect=(), tracer=None,
+               **kw):
+    """solve(op, NEV, **kw) on `store` (a fresh RAM tier by default), the
+    launch counters zeroed just before and read just after; every solver
+    kernel must have launched. With `expect` an exception type, the solve
+    must stop with it and that exception is returned in place of the
+    result. Returns (result, wall seconds)."""
+    from repro_torch.core import TieredStore, solve
+    from repro_torch.obs import tracing
+    store = store if store is not None else TieredStore(device=op.device)
+    op.store = store
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = None
+    with (tracing(tracer) if tracer is not None
+          else contextlib.nullcontext()):
+        try:
+            out = solve(op, NEV, store=store, **kw)
+        except expect as e:
+            out = e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    widths = launches_by_width()
+    for kernel, by in widths.items():
+        if not sum(by.values()):
+            fail(f"{label}: kernel {kernel} was not launched")
+    if expect and not isinstance(out, expect):
+        fail(f"{label}: the solve ran to its end; it had to stop with "
+             f"{expect.__name__}")
+    return out, wall
+
+
+def tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def snapshot_bytes(root: str) -> tuple[int, int]:
+    """(step, bytes) of the newest committed snapshot under `root`: its
+    state directory and, on SAFS, its page snapshot."""
+    from repro_torch.ckpt.checkpoint import valid_steps
+    step = valid_steps(os.path.join(root, "state"))[-1]
+    name = f"step_{step:010d}"
+    return step, sum(tree_bytes(os.path.join(root, sub, name))
+                     for sub in ("state", "pages")
+                     if os.path.isdir(os.path.join(root, sub, name)))
+
+
+def snapshot_line(root: str, tracer) -> str:
+    """Bytes of the newest committed snapshot under `root` and the
+    seconds of every `ckpt.save` span the tracer holds."""
+    step, nbytes = snapshot_bytes(root)
+    secs = [r["dur"] / 1e6 for r in tracer.records()
+            if r["type"] == "span" and r["name"] == "ckpt.save"]
+    return (f"{nbytes} bytes per snapshot (step {step}) | ckpt.save "
+            f"seconds {np.array2string(np.array(secs), precision=3)}, "
+            f"mean {np.mean(secs):.3f} s = "
+            f"{nbytes / np.mean(secs) / 1e9:.3f} GB/s")
+
+
+def suspend_resume(torch, op, label: str, solve_kw: dict, every: int,
+                   after: int, root: str):
+    """The uninterrupted solve, the one the guard suspends, and its
+    resume, all three under deterministic algorithms; the resume must be
+    bit-equal to the uninterrupted solve. Returns (uninterrupted result,
+    its wall, resumed result, suspended wall, resumed wall, tracer of the
+    suspended run)."""
+    from repro_torch.ckpt import CheckpointPolicy, SolveSuspended
+    from repro_torch.obs import Tracer
+    torch.use_deterministic_algorithms(True)
+    try:
+        full, wall = ckpt_solve(torch, op, f"{label} uninterrupted",
+                                **solve_kw)
+        guard = Guard(after)
+        tracer = Tracer()
+        sus, wall_s = ckpt_solve(
+            torch, op, f"{label} suspended", expect=SolveSuspended,
+            tracer=tracer, callback=guard.cb,
+            checkpoint=CheckpointPolicy(root=root, every_restarts=every,
+                                        guard=guard), **solve_kw)
+        res, wall_r = ckpt_solve(torch, op, f"{label} resumed",
+                                 resume=root, **solve_kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same_vals = np.array_equal(res.eigenvalues, full.eigenvalues)
+    same_vecs = torch.equal(res.eigenvectors, full.eigenvectors)
+    log(f"{label}: suspended at step {sus.step} (guard armed after "
+        f"{after} callbacks, every_restarts={every}), resumed from "
+        f"{res.resumed_step} | restarts/iterations {res.n_restarts} "
+        f"against {full.n_restarts} uninterrupted | eigenvalues bit-equal "
+        f"{same_vals}, eigenvectors bit-equal {same_vecs} (deterministic "
+        f"algorithms) | walls: uninterrupted {wall:.3f} s, suspended "
+        f"{wall_s:.3f} s + resumed {wall_r:.3f} s")
+    if not (full.converged and res.converged):
+        fail(f"{label}: a solve did not converge")
+    if res.resumed_step != sus.step:
+        fail(f"{label}: resumed from {res.resumed_step}, suspended at "
+             f"{sus.step}")
+    if not (same_vals and same_vecs and res.n_restarts == full.n_restarts):
+        fail(f"{label}: the resumed solve differs from the uninterrupted "
+             f"one: {res.eigenvalues} vs {full.eigenvalues}, "
+             f"{res.n_restarts} vs {full.n_restarts}")
+    return full, wall, res, wall_s, wall_r, tracer
+
+
+def checkpoint_phase(torch, op) -> None:
+    """Phase 20: suspend and resume on the RAM tier, Krylov–Schur and
+    LOBPCG, bit-equal under deterministic algorithms."""
+    from repro_torch.ckpt import CheckpointPolicy
+    from repro_torch.core import true_residuals
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ckpt_ram_")
+    try:
+        log(f"checkpoint: {root_line(root)}")
+        ks = os.path.join(root, "ks")
+        full, wall, res, _, _, tracer = suspend_resume(
+            torch, op, "checkpoint krylov_schur", KS_SOLVE, every=1,
+            after=2, root=ks)
+        resid = true_residuals(op, res.eigenvectors, res.eigenvalues)
+        log(f"checkpoint krylov_schur: resumed true residuals "
+            f"{np.array2string(resid)} (limit {RESID_TOL:g}) | "
+            f"{snapshot_line(ks, tracer)}")
+        if not np.all(resid <= RESID_TOL):
+            fail(f"resumed true residuals above {RESID_TOL}: {resid}")
+        every = os.path.join(root, "every")
+        torch.use_deterministic_algorithms(True)
+        try:
+            ck, wall_ck = ckpt_solve(
+                torch, op, "checkpoint every restart",
+                checkpoint=CheckpointPolicy(root=every, every_restarts=1),
+                **KS_SOLVE)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        log(f"checkpoint krylov_schur: wall with a snapshot every restart "
+            f"{wall_ck:.3f} s ({ck.n_restarts} snapshots, the last "
+            f"{snapshot_bytes(every)[1]} bytes) "
+            f"against {wall:.3f} s without | eigenvalues bit-equal to the "
+            f"uninterrupted solve's: "
+            f"{np.array_equal(ck.eigenvalues, full.eigenvalues)}")
+        if not np.array_equal(ck.eigenvalues, full.eigenvalues):
+            fail("snapshots changed the solve's eigenvalues")
+        lob = os.path.join(root, "lobpcg")
+        _, _, _, _, _, tracer = suspend_resume(
+            torch, op, "checkpoint lobpcg", LOBPCG_SOLVE, every=5,
+            after=10, root=lob)
+        log(f"checkpoint lobpcg: {snapshot_line(lob, tracer)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"checkpoint: phase 20 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def safs_crash_phase(torch, op, res_ks, res_safs) -> None:
+    """Phase 21: a crash between a page snapshot and its state commit on
+    SAFS, a resume into a fresh page root, and a page repaired from the
+    surviving snapshot."""
+    from repro_torch.ckpt import CheckpointPolicy
+    from repro_torch.ckpt.checkpoint import valid_steps
+    from repro_torch.core import TieredStore, true_residuals
+    from repro_torch.safs import (CrashPoint, FaultPlan, FaultRule, Scrubber,
+                                  flip_bit, repair_from_checkpoint)
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ckpt_safs_")
+    ck = os.path.join(root, "ck")
+    crash = fresh = None
+    try:
+        log(f"safs crash: {root_line(root)}")
+        plan = FaultPlan([FaultRule(site="ckpt.save", kind="crash", at=3)])
+        crash = TieredStore(backend="safs", device=op.device, backend_opts={
+            "root": os.path.join(root, "crash"), "faults": plan})
+        _, wall_c = ckpt_solve(
+            torch, op, "safs crash", store=crash, expect=CrashPoint,
+            checkpoint=CheckpointPolicy(root=ck, every_restarts=1),
+            **KS_SOLVE)
+        state = valid_steps(os.path.join(ck, "state"))
+        pages = valid_steps(os.path.join(ck, "pages"))
+        log(f"safs crash: CrashPoint after {wall_c:.3f} s, fired "
+            f"{[f['site'] for f in plan.fired(kind='crash')]} | state steps "
+            f"{state}, page steps {pages}")
+        if state != [1, 2] or 3 not in pages:
+            fail(f"after the ckpt.save crash: state steps {state} (want "
+                 f"[1, 2]), page steps {pages} (want 3 among them)")
+        fresh = TieredStore(backend="safs", device=op.device,
+                            backend_opts={"root": os.path.join(root, "fresh")})
+        res, wall = ckpt_solve(torch, op, "safs resume", store=fresh,
+                               resume=ck, **KS_SOLVE)
+        resid = true_residuals(op, res.eigenvectors, res.eigenvalues)
+        # ±1 are eigenvalues many times over here (one per connected
+        # component), so each eigenvalue is held to the nearest of phase
+        # 5's rather than in sorted order
+        want = res_ks.eigenvalues
+        rel = (np.abs(res.eigenvalues[:, None] - want[None, :])
+               / np.abs(want)[None, :]).min(axis=1)
+        log(f"safs crash: resumed from step {res.resumed_step} in "
+            f"{wall:.3f} s | converged {res.converged}, restarts "
+            f"{res.n_restarts} against phase 9's {res_safs.n_restarts} | "
+            f"eigenvalues against the nearest of phase 5's: rel err "
+            f"{np.array2string(rel, precision=3)} (tol 1e-5) | true "
+            f"residuals {np.array2string(resid)} (limit {RESID_TOL:g})")
+        if res.resumed_step != 2 or not res.converged:
+            fail(f"safs resume: resumed_step {res.resumed_step} (want 2), "
+                 f"converged {res.converged}")
+        if not (np.all(rel <= 1e-5) and np.all(resid <= RESID_TOL)):
+            fail(f"safs resume: eigenvalues {rel} or residuals {resid} off")
+        if res.n_restarts > res_safs.n_restarts + 1:
+            fail(f"safs resume took {res.n_restarts} restarts, phase 9 "
+                 f"{res_safs.n_restarts}")
+        # the crashed store at rest holds exactly the step-3 page snapshot
+        backend = crash.backend
+        victim = sorted(backend.data_ids())[0]
+        flip_bit(backend.pagefile(victim).path, 0)
+        t0 = time.perf_counter()
+        scrub = Scrubber(backend).run_once()
+        t_scrub = time.perf_counter() - t0
+        rep = repair_from_checkpoint(backend, os.path.join(ck, "pages"))
+        again = Scrubber(backend).run_once()
+        integrity = backend.stats_dict()["integrity"]
+        log(f"safs crash: flipped a bit of {victim!r} page 0 | scrub "
+            f"{scrub['files']} files, {scrub['pages']} pages in "
+            f"{t_scrub:.3f} s: corrupt {scrub['corrupt']} | repair from "
+            f"step {rep['step']}: repaired {rep['repaired']}, unrepaired "
+            f"{rep['unrepaired']} | second scrub corrupt {again['corrupt']} "
+            f"| integrity {json.dumps(integrity)}")
+        if scrub["corrupt"] != [(victim, 0)]:
+            fail(f"the scrub found {scrub['corrupt']}, not {victim} page 0")
+        if (rep["repaired"] != [(victim, 0)] or again["corrupt"]
+                or integrity["pages_repaired"] != 1):
+            fail(f"the page was not repaired from the snapshot: {rep}")
+    finally:
+        for store in (crash, fresh):
+            if store is not None:
+                store.close()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"safs crash: phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def traced_phase(torch, op) -> None:
+    """Phase 22: phase 5's solve traced, beside an untraced one."""
+    from repro_torch.obs import report
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="trace_")
+    try:
+        path = os.path.join(root, "solve.jsonl")
+        plain, wall = ckpt_solve(torch, op, "untraced", **KS_SOLVE)
+        res, wall_t = ckpt_solve(torch, op, "traced", trace=path,
+                                 **KS_SOLVE)
+        records = report.load(path)
+        problems = report.validate(records)
+        rec = report.reconcile(records)
+        table = report.render(records).split("\n\n")[1]
+        log(f"trace: traced wall {wall_t:.3f} s against {wall:.3f} s "
+            f"untraced | {len(records)} records, "
+            f"{os.path.getsize(path)} bytes | validate {problems} | "
+            f"reconcile {json.dumps(rec)}")
+        log(f"trace: phase table\n{table}")
+        if problems or not (rec and rec["exact"]):
+            fail(f"the trace does not validate: {problems}, {rec}")
+        if res.n_restarts != plain.n_restarts or not res.converged:
+            fail("the traced solve took another course than the untraced")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"trace: phase 22 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def quickstart_phase(torch) -> None:
+    """Phase 23: the port's quickstart on the card."""
+    from repro_torch.examples import quickstart
+    t_phase = time.perf_counter()
+    zero_counters()
+    try:
+        res = quickstart.main([])
+    except AssertionError as e:
+        fail(f"quickstart: {e}")
+    torch.cuda.synchronize()
+    widths = launches_by_width()
+    for kernel, by in widths.items():
+        if not sum(by.values()):
+            fail(f"quickstart: kernel {kernel} was not launched")
+    if not res.converged:
+        fail("the quickstart solve did not converge")
+    log(f"quickstart: {res.n_restarts} restarts, launches by width "
+        f"{json.dumps(widths)} | phase 23 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def flash_phase(torch, timer, dev):
     """The flash kernel at yi-9b's prefill shapes and one ragged,
     non-causal shape, against its plain version in float32."""
@@ -1689,7 +2035,7 @@ def main() -> None:
     weyl_check(torch, op, res32, resid32, res16, resid16)
     breakdown(torch, op16, "bf16")
     del op16
-    safs_subspace_phase(torch, op, rows, res32, wall32)
+    res_safs = safs_subspace_phase(torch, op, rows, res32, wall32)
 
     # the rest of the solver family on the same image (phases 14-17)
     t_family = time.perf_counter()
@@ -1699,6 +2045,9 @@ def main() -> None:
               "lobpcg": lobpcg_phase(torch, op, res32),
               "chebyshev": chebyshev_phase(torch, op, res32)}
     t_family = time.perf_counter() - t_family
+    checkpoint_phase(torch, op)                      # phase 20
+    safs_crash_phase(torch, op, res32, res_safs)     # phase 21
+    traced_phase(torch, op)                          # phase 22
     del op, tm                           # free the 12.86 GB image
     gc.collect()
     torch.cuda.empty_cache()
@@ -1712,6 +2061,7 @@ def main() -> None:
     widths["shift_invert"] = shift_invert_phase(torch, dev, tm16)
     t_family += time.perf_counter() - t0
     del tm16
+    quickstart_phase(torch)                          # phase 23
     # each width row's launches: the solve that runs the kernel at it
     for r in family:
         kernel, width = r["name"].rsplit("_", 1)

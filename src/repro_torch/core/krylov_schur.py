@@ -84,11 +84,15 @@ def eigsh(op, nev: int, *, block_size: int = 4, num_blocks: int | None = None,
     reproduce; a parity test passes the reference's draw as x0.)
 
     The store defaults to a `TieredStore` on the operator's device.
-    `checkpointer` is not ported yet (ROADMAP queue 1 item 4) and raises.
+
+    checkpointer: a `ckpt.solver.SolveCheckpointer` (normally built by
+    `core.solver.solve(..., checkpoint=/resume=)`). Snapshots land at
+    restart boundaries — right after thick-restart compression, when the
+    live state is exactly the compressed subspace plus H = diag(θ), q and
+    r_next (restart compression IS the checkpoint compression, §3.4).
+    Resume restores that state bit-identically and continues at the next
+    restart index; it ignores `x0`.
     """
-    if checkpointer is not None:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet: ROADMAP.md queue 1 item 4")
     if CAP_FUSED_EXPAND in capabilities(op):
         raise NotImplementedError(
             "operator-fused expansion (the sharded operator) is not ported "
@@ -105,17 +109,31 @@ def eigsh(op, nev: int, *, block_size: int = 4, num_blocks: int | None = None,
     dev = store.device
     n = op.n
 
-    q, _ = cholqr(_start_block(store, n, b, seed, x0), impl=impl)
-    v = MultiVector(store, n, group_size=group_size, impl=impl)
-    h = np.zeros((0, 0), dtype=np.float64)
-    r_next = np.zeros((b, b), dtype=np.float64)
-    n_ops = 0
-    theta_out = np.zeros(nev)
-    res_out = np.full(nev, np.inf)
+    resume = checkpointer.load(store) if checkpointer is not None else None
+    if resume is not None:
+        # bit-identical continuation from the last committed restart
+        # boundary: same subspace blocks, same H/q/r_next, same counters
+        v = resume.mvs["v"]
+        h = np.asarray(resume.arrays["h"], np.float64)
+        q = store.as_tensor(resume.arrays["q"]).float()
+        r_next = np.asarray(resume.arrays["r_next"], np.float64)
+        theta_out = np.asarray(resume.arrays["theta_out"], np.float64)
+        res_out = np.asarray(resume.arrays["res_out"], np.float64)
+        n_ops = int(resume.extra["n_ops"])
+        start_restart = resume.step
+    else:
+        q, _ = cholqr(_start_block(store, n, b, seed, x0), impl=impl)
+        v = MultiVector(store, n, group_size=group_size, impl=impl)
+        h = np.zeros((0, 0), dtype=np.float64)
+        r_next = np.zeros((b, b), dtype=np.float64)
+        n_ops = 0
+        theta_out = np.zeros(nev)
+        res_out = np.full(nev, np.inf)
+        start_restart = 0
     converged = False
-    restarts = 0
+    restarts = start_restart
 
-    for restarts in range(max_restarts):
+    for restarts in range(start_restart, max_restarts):
         while v.ncols + b <= m_max:
             q, h, r_next = _expand(op, v, q, h, impl,
                                    fused_passes=fused_passes)
@@ -146,6 +164,15 @@ def eigsh(op, nev: int, *, block_size: int = 4, num_blocks: int | None = None,
         v = v_new
         h = np.diag(theta[:k_keep])
 
+        if checkpointer is not None:
+            # restart boundary = snapshot point; may raise SolveSuspended
+            # after committing on preemption
+            checkpointer.maybe_checkpoint(store, restarts + 1, lambda: {
+                "mvs": {"v": v},
+                "arrays": {"h": h, "q": q, "r_next": r_next,
+                           "theta_out": theta_out, "res_out": res_out},
+                "extra": {"n_ops": n_ops}})
+
     # --- materialize Ritz vectors: one more streamed pass ----------------
     vec = None
     if compute_eigenvectors:
@@ -158,4 +185,6 @@ def eigsh(op, nev: int, *, block_size: int = 4, num_blocks: int | None = None,
     return EigResult(
         eigenvalues=theta_out, eigenvectors=vec, residuals=res_out,
         n_restarts=restarts, n_ops=n_ops, m_subspace=m_max,
-        converged=converged, io_stats=store.stats.as_dict())
+        converged=converged, io_stats=store.stats.as_dict(),
+        resumed_step=(checkpointer.resumed_step
+                      if checkpointer is not None else None))

@@ -259,12 +259,16 @@ def lobpcg(op, nev: int, *, block_size: int | None = None,
     x0: an explicit (n, b) start block, orthonormalized by SVQB as the
     reference orthonormalizes its own draw; without it the start block is
     drawn from a `torch.Generator` seeded with `seed` on the store's
-    device. `checkpointer` is not ported yet (ROADMAP queue 1 item 4) and
-    raises.
+    device.
+
+    checkpointer: a `ckpt.solver.SolveCheckpointer` (normally built by
+    `core.solver.solve(..., checkpoint=/resume=)`). LOBPCG has no
+    restarts, so the snapshot boundary is the end of an iteration: the
+    whole live state is the two 3-block MultiVectors S = [X, W, P] and
+    AS (already spilled to the slow tier by `_put_spilled`) plus the
+    Ritz values, residual norms, best-iterate tracker and a few flags.
+    Resume ignores `x0`.
     """
-    if checkpointer is not None:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet: ROADMAP.md queue 1 item 4")
     if which not in ("LA", "SA"):
         raise ValueError(f"lobpcg supports which='LA'|'SA', got {which!r}")
     b = block_size or nev
@@ -274,23 +278,43 @@ def lobpcg(op, nev: int, *, block_size: int | None = None,
     dev = store.device
     n = op.n
 
-    x, _ = svqb(_start_block(store, n, b, seed, x0), impl=impl)
-    ax = op.matmat(x)
-    n_ops = 1
-    s = MultiVector(store, n, group_size=group_size, impl=impl)
-    a_s = MultiVector(store, n, group_size=group_size, impl=impl)
-    _put_spilled(s, 0, x)
-    _put_spilled(a_s, 0, ax)
-    have_p = False
-    theta = np.zeros(b)
-    res_norms = np.full(b, np.inf)
-    best = np.inf
-    stall = 0
-    best_x, best_theta, best_res = x, theta[:nev], res_norms[:nev]
+    resume = checkpointer.load(store) if checkpointer is not None else None
+    if resume is not None:
+        # the next iteration's residual pass re-reads X ⊕ AX from the
+        # restored blocks, so x/ax need no separate restore; the best-
+        # iterate tracker continues where it stopped
+        s = resume.mvs["s"]
+        a_s = resume.mvs["a_s"]
+        theta = np.asarray(resume.arrays["theta"], np.float64)
+        res_norms = np.asarray(resume.arrays["res_norms"], np.float64)
+        best_x = store.as_tensor(resume.arrays["best_x"]).float()
+        best_theta = np.asarray(resume.arrays["best_theta"], np.float64)
+        best_res = np.asarray(resume.arrays["best_res"], np.float64)
+        n_ops = int(resume.extra["n_ops"])
+        have_p = bool(resume.extra["have_p"])
+        stall = int(resume.extra["stall"])
+        best = float(resume.extra["best"])
+        x = best_x
+        start_it = resume.step
+    else:
+        x, _ = svqb(_start_block(store, n, b, seed, x0), impl=impl)
+        ax = op.matmat(x)
+        n_ops = 1
+        s = MultiVector(store, n, group_size=group_size, impl=impl)
+        a_s = MultiVector(store, n, group_size=group_size, impl=impl)
+        _put_spilled(s, 0, x)
+        _put_spilled(a_s, 0, ax)
+        have_p = False
+        theta = np.zeros(b)
+        res_norms = np.full(b, np.inf)
+        best = np.inf
+        stall = 0
+        best_x, best_theta, best_res = x, theta[:nev], res_norms[:nev]
+        start_it = 0
     converged = False
-    it = 0
+    it = start_it
 
-    for it in range(max_iters):
+    for it in range(start_it, max_iters):
         # --- residual pass: one streamed read of X ⊕ AX ------------------
         rp = SubspacePass(s, peers=[a_s], block_ids=[0])
         hr = rp.add_visit(lambda i, blk, peers: (blk, peers[0]), axis=None)
@@ -355,6 +379,17 @@ def lobpcg(op, nev: int, *, block_size: int | None = None,
         have_p = True
         theta = theta_all[:b]
 
+        if checkpointer is not None:
+            # iteration boundary = snapshot point; may raise
+            # SolveSuspended after committing on preemption
+            checkpointer.maybe_checkpoint(store, it + 1, lambda: {
+                "mvs": {"s": s, "a_s": a_s},
+                "arrays": {"theta": np.asarray(theta, np.float64),
+                           "res_norms": res_norms, "best_x": best_x,
+                           "best_theta": best_theta, "best_res": best_res},
+                "extra": {"n_ops": n_ops, "have_p": have_p,
+                          "stall": stall, "best": float(best)}})
+
     if converged:
         vec, lam, rn = x[:, :nev], theta[:nev], res_norms[:nev]
     else:                       # stall / max_iters: best iterate, not last
@@ -363,4 +398,6 @@ def lobpcg(op, nev: int, *, block_size: int | None = None,
         eigenvalues=np.asarray(lam), eigenvectors=vec.contiguous(),
         residuals=np.asarray(rn), n_restarts=it, n_ops=n_ops,
         m_subspace=3 * b, converged=converged,
-        io_stats=store.stats.as_dict())
+        io_stats=store.stats.as_dict(),
+        resumed_step=(checkpointer.resumed_step
+                      if checkpointer is not None else None))

@@ -45,6 +45,8 @@ class EigResult:
     m_subspace: int
     converged: bool
     io_stats: dict | None = None
+    trace: object | None = None    # obs.Tracer when solve(..., trace=) was used
+    resumed_step: int | None = None  # checkpoint step this solve resumed from
 
 
 def true_residuals(op, x, theta: Sequence[float]) -> np.ndarray:

@@ -20,19 +20,27 @@ bounds with true residuals against the inner operator, so the returned
 
 The start block of every method can be given explicitly through the
 options (`x0=`, passed on to the method), as parity tests do with the
-reference's `jax.random` draw. Not ported yet, and raising
-`NotImplementedError` that names the ROADMAP item: `trace=` (queue 1
-item 4, with the rest of `repro.obs`) and `checkpoint=` / `resume=`
-(item 4).
+reference's `jax.random` draw.
+
+`trace=` records the whole solve on one timeline (`repro_torch.obs`),
+and `checkpoint=` / `resume=` snapshot and continue Krylov–Schur and
+LOBPCG at their restart (iteration) boundaries (`repro_torch.ckpt`), in
+the reference's formats: a trace of either package passes either
+package's `report.validate`, and a snapshot of either resumes in the
+other.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Protocol
+import os
+from typing import Callable, Dict, Optional, Protocol, Union
 
 import numpy as np
 import torch
 
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.progress import ConvergenceTracker
 from repro_torch.core.krylov_schur import eigsh
 from repro_torch.core.lanczos import lanczos_eigsh
 from repro_torch.core.lobpcg import lobpcg
@@ -59,6 +67,8 @@ class SolverContext:
     seed: int = 0
     compute_eigenvectors: bool = True
     callback: Optional[Callable] = None
+    checkpoint: Optional[object] = None   # ckpt.solver.CheckpointPolicy
+    resume: Optional[str] = None          # checkpoint root to resume from
     options: Dict = dataclasses.field(default_factory=dict)
     # method-specific extras (num_blocks, group_size, precond, at_op, x0)
 
@@ -76,19 +86,36 @@ class Solver(Protocol):
         ...
 
 
+def _make_checkpointer(ctx: SolverContext, method: str, *, block_size):
+    """Build the checkpoint/resume bridge for the methods that support it
+    (None when the context asks for neither). The solve-shape params are
+    recorded in every snapshot and verified on resume, so a checkpoint
+    can never silently continue a *different* solve."""
+    if ctx.checkpoint is None and ctx.resume is None:
+        return None
+    from repro_torch.ckpt.solver import SolveCheckpointer
+    return SolveCheckpointer(
+        ctx.checkpoint, method=method,
+        resume_from=(os.fspath(ctx.resume) if ctx.resume else None),
+        params={"nev": ctx.nev, "which": ctx.which,
+                "block_size": block_size})
+
+
 class _KrylovSchur:
     name = "krylov_schur"
     default_which = "LM"
 
     def solve(self, ctx: SolverContext) -> EigResult:
+        b = ctx.block_size or 4
         return eigsh(
-            ctx.op, ctx.nev, block_size=ctx.block_size or 4,
+            ctx.op, ctx.nev, block_size=b,
             num_blocks=ctx.options.get("num_blocks"),
             tol=ctx.tol, max_restarts=ctx.max_iters, which=ctx.which,
             store=ctx.store, impl=ctx.impl, seed=ctx.seed,
             group_size=ctx.options.get("group_size", 8),
             compute_eigenvectors=ctx.compute_eigenvectors,
             fused_passes=ctx.fused_passes, callback=ctx.callback,
+            checkpointer=_make_checkpointer(ctx, self.name, block_size=b),
             x0=ctx.options.get("x0"))
 
 
@@ -118,7 +145,10 @@ class _Lobpcg:
             precond=ctx.options.get("precond"), store=ctx.store,
             seed=ctx.seed, impl=ctx.impl, fused_passes=ctx.fused_passes,
             group_size=ctx.options.get("group_size", 8),
-            callback=ctx.callback, x0=ctx.options.get("x0"))
+            callback=ctx.callback,
+            checkpointer=_make_checkpointer(
+                ctx, self.name, block_size=ctx.block_size or ctx.nev),
+            x0=ctx.options.get("x0"))
 
 
 class _Svd:
@@ -186,7 +216,8 @@ def solve(op, nev: int, *, method: str = "krylov_schur",
           impl: kops.Impl = "auto", seed: int = 0,
           compute_eigenvectors: bool = True,
           callback: Callable | None = None,
-          trace=None, checkpoint=None, resume=None,
+          trace: Union[obs_trace.Tracer, str, os.PathLike, None] = None,
+          checkpoint=None, resume: Union[str, os.PathLike, None] = None,
           **options) -> EigResult:
     """Solve for `nev` eigenpairs of `op` with the chosen family member.
 
@@ -202,20 +233,38 @@ def solve(op, nev: int, *, method: str = "krylov_schur",
     operator, with true residuals against it.
 
     The store defaults to a `TieredStore` on the operator's device (the
-    CUDA card unless the operator was built with `device="cpu"`). All
-    remaining keyword arguments land in `SolverContext.options`
+    CUDA card unless the operator was built with `device="cpu"`).
+
+    trace: an `obs.Tracer` (or a path — a fresh Tracer is created and its
+    JSONL timeline written there on completion) records the whole solve:
+    a root "solve" span, every instrumented substrate span, per-step
+    "convergence.step" events with an ETA estimate, and a "solve.io"
+    metrics record with before/after/delta I/O-counter snapshots. The
+    Tracer is attached to the result as `EigResult.trace`; feed its JSONL
+    to `python -m repro_torch.obs.report` for the report and the
+    `--validate` gate.
+
+    checkpoint: a `ckpt.solver.CheckpointPolicy(root, every_restarts=N,
+    guard=...)` — the solve snapshots its full state at restart (eigsh) /
+    iteration (lobpcg) boundaries into `root` and, when the policy's
+    `ft.PreemptionGuard` fires mid-solve, finishes the in-flight restart,
+    checkpoints, and raises `ckpt.solver.SolveSuspended`. resume: a
+    checkpoint root to continue from — the solve restores the newest
+    committed snapshot bit-identically and walks on; pass both to keep
+    checkpointing after a resume. Supported by "krylov_schur" and
+    "lobpcg".
+
+    All remaining keyword arguments land in `SolverContext.options`
     (num_blocks, group_size, precond, at_op, x0).
     """
-    if trace is not None:
-        raise NotImplementedError(
-            "solve(trace=...) needs the rest of repro.obs (metrics, "
-            "progress, report): ROADMAP.md queue 1 item 4")
-    if checkpoint is not None or resume is not None:
-        raise NotImplementedError(
-            "checkpoint/resume is not ported yet: ROADMAP.md queue 1 item 4")
     if method not in _REGISTRY:
         raise ValueError(f"unknown method {method!r}; "
                          f"registered: {solver_names()}")
+    if (checkpoint is not None or resume is not None) and method not in (
+            "krylov_schur", "lobpcg"):
+        raise ValueError(
+            f"checkpoint/resume is supported for methods "
+            f"'krylov_schur' and 'lobpcg', not {method!r}")
     solver = _REGISTRY[method]
     is_transform = CAP_SPECTRAL_TRANSFORM in capabilities(op)
     if which is None:
@@ -226,13 +275,44 @@ def solve(op, nev: int, *, method: str = "krylov_schur",
         # (shift-invert near a dominant σ-neighborhood, Chebyshev filters
         # are ≥ 1 on the wanted set) — take the algebraic top
         which = "LA"
+    trace_path = None
+    tracer = None
+    if trace is not None:
+        if isinstance(trace, obs_trace.Tracer):
+            tracer = trace
+        else:
+            trace_path = os.fspath(trace)
+            tracer = obs_trace.Tracer()
+
     ctx = SolverContext(
         op=op, nev=nev, which=which, tol=tol, max_iters=max_iters,
         store=store or TieredStore(device=getattr(op, "device", None)),
         block_size=block_size, ortho=ortho, impl=impl, seed=seed,
         compute_eigenvectors=compute_eigenvectors, callback=callback,
+        checkpoint=checkpoint,
+        resume=os.fspath(resume) if resume is not None else None,
         options=options)
-    res = solver.solve(ctx)
-    if is_transform:
-        res = _untransform(op, res)
-    return res
+
+    if tracer is None:
+        res = solver.solve(ctx)
+        if is_transform:
+            res = _untransform(op, res)
+        return res
+
+    conv = ConvergenceTracker(tracer, tol=tol, nev=nev, method=method)
+    ctx.callback = conv.chain(callback)
+    with obs_trace.tracing(tracer):
+        with obs_trace.span("solve", method=method, nev=nev, which=which,
+                            tol=tol) as sp:
+            s0 = obs_metrics.snapshot_store(ctx.store)
+            res = solver.solve(ctx)
+            if is_transform:
+                res = _untransform(op, res)
+            s1 = obs_metrics.snapshot_store(ctx.store)
+            sp.set(converged=res.converged, restarts=res.n_restarts,
+                   n_ops=res.n_ops)
+        tracer.metric("solve.io", {"start": s0, "end": s1,
+                                   "delta": obs_metrics.delta(s0, s1)})
+    if trace_path is not None:
+        tracer.write_jsonl(trace_path)
+    return dataclasses.replace(res, trace=tracer)

@@ -316,8 +316,7 @@ class TieredStore:
         """Write device-tier entries with no current host copy through to
         the backend (residency unchanged: the entry just becomes clean
         with a host copy, as after a promote). A page-file snapshot of
-        the store then misses no block (the checkpoint layer, ROADMAP
-        queue 1 item 4, calls it)."""
+        the store then misses no block (`ckpt.save_safs` calls it)."""
         with self._lock:
             for e in self._entries.values():
                 if e.tier == DEVICE and (e.dirty or not e.has_host):

@@ -3,7 +3,8 @@ image on disk (SAFS). Port of `examples/ooc_lanczos.py`.
 
     PYTHONPATH=src python -m repro_torch.examples.ooc_lanczos [--n 4000]
         [--nnz 48000] [--nev 8] [--solver ks|lanczos] [--root DIR]
-        [--trace OUT.jsonl] [--device cpu]
+        [--trace OUT.jsonl] [--checkpoint DIR [--every N]] [--resume DIR]
+        [--device cpu]
 
 An R-MAT graph, the semi-external SpMM operator and the Krylov–Schur
 (or block-Lanczos baseline) loop with the *entire vector subspace AND
@@ -18,30 +19,40 @@ they arrive; `--device cpu` runs their plain versions.
 
 The driver runs the identical solve on the ram backend and asserts that
 the two spectra agree to rtol 1e-5, then prints logical against physical
-tier traffic, prefetch overlap and the backend's `stats_dict()`. With
-`--trace OUT.jsonl` the SAFS solve's spans are written there.
+tier traffic, prefetch overlap, the backend's `stats_dict()` and a
+checkpoint snapshot taken straight from the page files. With `--trace
+OUT.jsonl` the SAFS solve records its whole timeline there (inspect it
+with `python -m repro_torch.obs.report OUT.jsonl`).
 
-`--checkpoint/--resume` raise NotImplementedError: checkpoint/resume is
-ROADMAP.md queue 1 item 4.
+Fault tolerance (`--solver ks` only): `--checkpoint DIR` snapshots the
+SAFS solve at restart boundaries (every `--every` restarts) under
+`ft.PreemptionGuard` — a SIGTERM mid-solve finishes the in-flight
+restart, commits a checkpoint and returns with a resume hint; rerun with
+`--resume DIR` to continue from the newest committed snapshot (the final
+ram-parity assert then shows the interrupted solve converged to the same
+spectrum).
 """
 import argparse
-import contextlib
 import json
 import os
 import shutil
+import signal
 import tempfile
 
 import numpy as np
 
+from repro_torch.ckpt import checkpoint as ck
+from repro_torch.ckpt.solver import CheckpointPolicy, SolveSuspended
 from repro_torch.core import GraphOperator, TieredStore, solve
+from repro_torch.ft import PreemptionGuard
 from repro_torch.graphs import normalized_adjacency, pack_tiles, rmat_graph
-from repro_torch.obs import Tracer, tracing
 
 
 _METHODS = {"ks": "krylov_schur", "lanczos": "lanczos"}
 
 
-def run_solve(image, nev, *, solver, store, stream_image=False):
+def run_solve(image, nev, *, solver, store, stream_image=False,
+              trace=None, checkpoint=None, resume=None, callback=None):
     # stream_image=True spills the edge tiles into the same page store as
     # the subspace: matmat then really is semi-external (§3.3.3)
     op = GraphOperator(image, store=store, stream_image=stream_image,
@@ -49,7 +60,9 @@ def run_solve(image, nev, *, solver, store, stream_image=False):
     kw = ({"tol": 1e-7, "max_iters": 100} if solver == "ks" else {})
     try:
         return solve(op, nev, method=_METHODS[solver], block_size=4,
-                     store=store, group_size=2, **kw)
+                     store=store, group_size=2, trace=trace,
+                     checkpoint=checkpoint, resume=resume,
+                     callback=callback, **kw)
     finally:
         op.delete_image()
 
@@ -63,16 +76,23 @@ def main(argv=None):
     ap.add_argument("--root", default=None,
                     help="directory for the SAFS page files (default: tmp)")
     ap.add_argument("--trace", default=None, metavar="OUT.jsonl",
-                    help="record the SAFS solve's spans to this JSONL file")
-    ap.add_argument("--checkpoint", default=None, metavar="DIR")
-    ap.add_argument("--resume", default=None, metavar="DIR")
+                    help="record the SAFS solve timeline to this JSONL file")
+    ap.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="snapshot the SAFS solve at restart boundaries "
+                         "into DIR; SIGTERM suspends resumably (ks only)")
+    ap.add_argument("--every", type=int, default=1,
+                    help="checkpoint cadence in restarts (default 1)")
+    ap.add_argument("--resume", default=None, metavar="DIR",
+                    help="continue the SAFS solve from the newest "
+                         "committed checkpoint under DIR")
+    ap.add_argument("--preempt-after", type=int, default=None,
+                    help=argparse.SUPPRESS)  # test hook: SIGTERM ourselves
+    # after N restarts to exercise the real signal path
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.checkpoint or args.resume:
-        raise NotImplementedError(
-            "--checkpoint/--resume: checkpoint/resume is not ported yet "
-            "(ROADMAP.md queue 1 item 4)")
+    if (args.checkpoint or args.resume) and args.solver != "ks":
+        ap.error("--checkpoint/--resume need --solver ks")
 
     print(f"building RMAT graph: {args.n} vertices, ~{args.nnz} edges")
     r, c, v = rmat_graph(args.n, args.nnz, seed=1, symmetric=True)
@@ -93,14 +113,34 @@ def main(argv=None):
         budget, backend="safs", device=args.device,
         backend_opts={"root": os.path.join(root, "pages"),
                       "cache_bytes": image.shape[0] * 4 * 4 * 3 + (2 << 20)})
+    callback = None
+    if args.preempt_after is not None:
+        def callback(step, _theta, _res, _n=[0]):
+            _n[0] += 1
+            if _n[0] == args.preempt_after:
+                os.kill(os.getpid(), signal.SIGTERM)
+
     try:
-        tracer = Tracer()
-        with tracing(tracer) if args.trace else contextlib.nullcontext():
-            disk = run_solve(image, args.nev, solver=args.solver,
-                             store=safs_store, stream_image=True)
+        with PreemptionGuard() as guard:
+            policy = None
+            if args.checkpoint:
+                policy = CheckpointPolicy(root=args.checkpoint,
+                                          every_restarts=args.every,
+                                          guard=guard)
+            try:
+                disk = run_solve(image, args.nev, solver=args.solver,
+                                 store=safs_store, stream_image=True,
+                                 trace=args.trace, checkpoint=policy,
+                                 resume=args.resume, callback=callback)
+            except SolveSuspended as e:
+                # preempted: the in-flight restart finished and committed;
+                # the next run continues where this one stopped
+                print(f"solve suspended at restart {e.step}; resume with "
+                      f"--resume {e.root}")
+                return
         if args.trace:
-            tracer.write_jsonl(args.trace)
-            print(f"trace: {args.trace}")
+            print(f"trace: {args.trace} (inspect: python -m "
+                  f"repro_torch.obs.report {args.trace})")
 
         w_ram = np.sort(ram.eigenvalues)
         w_disk = np.sort(disk.eigenvalues)
@@ -134,6 +174,12 @@ def main(argv=None):
         if not s.host_bytes_read > 10 * s.host_bytes_written:
             raise AssertionError("tier must be read-dominated "
                                  "(write-avoidance)")
+
+        # checkpoint straight from the page files (no RAM round-trip)
+        path = ck.save_safs(os.path.join(root, "ckpt"), 1, safs_store,
+                            extra={"eigenvalues": list(map(float, w_disk))})
+        size = sum(e.stat().st_size for e in os.scandir(path))
+        print(f"page snapshot: {path} ({size / 1e6:.1f} MB)")
     finally:
         safs_store.close()
         if own_tmp:

@@ -2,8 +2,8 @@
 
 A copy of `repro.safs.faults` (pure Python; the port keeps its own copy
 so that it imports nothing of the JAX package). The `ckpt.save` and
-`solve.restart` sites below belong to the checkpoint layer, which the
-port does not have yet (ROADMAP.md queue 1 item 4).
+`solve.restart` sites below are consulted by the checkpoint layer
+(`repro_torch.ckpt.solver`).
 
 A four-hour single-machine solve (the paper's headline run, §4) WILL see
 transient NVMe errors, preemptions and kills — FlashGraph-class SSD arrays

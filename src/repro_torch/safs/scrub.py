@@ -1,9 +1,5 @@
-"""Background integrity scrubber (port of `repro.safs.scrub`).
-
-The repair half of the reference (`newest_verified_step`,
-`repair_from_checkpoint`) reads checkpoint snapshots, and the port has
-no checkpoint layer yet: both raise `NotImplementedError` until ROADMAP
-queue 1 item 4 brings it.
+"""Background integrity scrubber + checkpoint-sourced page repair (port
+of `repro.safs.scrub`).
 
 Checksums only help against silent medium rot if something *reads* the
 cold pages: a bit that flips under a history block nobody touches for an
@@ -24,21 +20,32 @@ The scrubber is the paced full-store verify pass (classic ZFS/ceph
     (`integrity.scrub_corrupt` / `crc_failures`) and emitted as
     `safs.corrupt` trace events with site "scrub"; each completed pass
     emits exactly one `safs.scrub` event and bumps
-    `integrity.scrub_passes` — the 1:1 pairs a trace report
-    reconciles.
+    `integrity.scrub_passes` — the 1:1 pairs `repro_torch.obs.report
+    --validate` reconciles.
+
+Repair closes the loop: `repair_from_checkpoint` re-fills quarantined
+pages from the newest checkpoint snapshot that passes
+`verify_safs_snapshot` — a page is only ever rewritten from a snapshot
+that proved itself clean, and only when that snapshot covers it;
+uncovered pages stay quarantined. NOTE the soundness boundary:
+page-level refill from an older snapshot into a *live, newer* store
+would silently mix epochs — it is only sound at rest (a suspended or
+crashed solve whose store state IS the snapshot state, e.g. right
+before a checkpoint resume).
 
 CLI::
 
-    python -m repro_torch.safs.scrub ROOT           # one verify pass
-    python -m repro_torch.safs.scrub ROOT --json    # machine-readable
-
-(`--repair-from C` raises until the checkpoint layer is ported.)
+    python -m repro_torch.safs.scrub ROOT                 # one verify pass
+    python -m repro_torch.safs.scrub ROOT --repair-from C # pass + repair
+    python -m repro_torch.safs.scrub ROOT --json          # machine-readable
 """
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
+import urllib.parse
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from repro_torch.obs import trace
@@ -138,23 +145,77 @@ class Scrubber:
 
 
 # ------------------------------------------------------------------ repair
-_NO_CKPT = ("repairing pages from a checkpoint needs the checkpoint layer, "
-            "which is not ported yet: ROADMAP.md queue 1 item 4 "
-            "(checkpoint/resume)")
-
-
 def newest_verified_step(ckpt_root: str) -> Optional[int]:
-    """Newest committed page-snapshot step that passes verification (in
-    the reference). Raises: the checkpoint layer is not ported."""
-    raise NotImplementedError(_NO_CKPT)
+    """Newest committed page-snapshot step under ckpt_root that passes
+    content verification; None when no snapshot proves clean. Corrupt
+    newer steps are skipped (and traced), mirroring the resume fallback
+    in `ckpt.solver.SolveCheckpointer.load`."""
+    from repro_torch.ckpt import checkpoint as ck
+    for step in reversed(ck.valid_steps(ckpt_root)):
+        snap = os.path.join(ckpt_root, f"step_{step:010d}")
+        problems = ck.verify_safs_snapshot(snap)
+        if not problems:
+            return step
+        trace.event("ckpt.corrupt_snapshot", step=step,
+                    problems=list(problems))
+    return None
 
 
 def repair_from_checkpoint(backend, ckpt_root: str,
                            targets: Optional[Sequence[Tuple[str, int]]]
                            = None) -> dict:
-    """Re-fill quarantined pages from the newest verified snapshot (in
-    the reference). Raises: the checkpoint layer is not ported."""
-    raise NotImplementedError(_NO_CKPT)
+    """Re-fill quarantined pages from the newest *verified* snapshot.
+
+    targets defaults to `backend.quarantined()`. Each (data_id, page)
+    covered by the snapshot is read out of the snapshot's page file
+    (itself CRC-verified on read — a rotten snapshot page raises rather
+    than repairing with rot) and rewritten through `backend.repair_page`
+    (journaled, checksum block updated, quarantine lifted, counted as
+    `pages_repaired`, emitted as `safs.repair`). Pages no verified
+    snapshot covers are returned in "unrepaired" and stay quarantined.
+
+    Only sound at rest — see the module docstring.
+    """
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.safs.pagefile import PageFile
+
+    if targets is None:
+        targets = backend.quarantined()
+    targets = [(d, int(p)) for d, p in targets]
+    out = {"step": None, "repaired": [], "unrepaired": list(targets)}
+    if not targets:
+        return out
+    step = newest_verified_step(ckpt_root)
+    if step is None:
+        return out
+    snap = os.path.join(ckpt_root, f"step_{step:010d}")
+    with open(os.path.join(snap, ck.MANIFEST)) as f:
+        covered = set(json.load(f).get("data_ids", []))
+    out["step"] = step
+    repaired, unrepaired = [], []
+    by_file: Dict[str, List[int]] = {}
+    for d, p in targets:
+        by_file.setdefault(d, []).append(p)
+    for d, pages in sorted(by_file.items()):
+        path = os.path.join(snap, urllib.parse.quote(d, safe="") + ".pages")
+        if d not in covered or not os.path.exists(path):
+            unrepaired.extend((d, p) for p in sorted(pages))
+            continue
+        pf = PageFile(path, integrity=backend.integrity)
+        try:
+            valid = [p for p in sorted(pages) if p < pf.n_pages]
+            unrepaired.extend((d, p) for p in sorted(pages)
+                              if p >= pf.n_pages)
+            # verified read path: a rotten snapshot page raises here
+            # instead of being installed as a "repair"
+            got = pf.read_pages_batch(valid)
+            for p in valid:
+                backend.repair_page(d, p, got[p])
+                repaired.append((d, p))
+        finally:
+            pf.close()
+    out["repaired"], out["unrepaired"] = repaired, unrepaired
+    return out
 
 
 # --------------------------------------------------------------------- CLI

@@ -110,25 +110,53 @@ def test_solve_runs_krylov_schur(graph):
                                np.sort(ref.eigenvalues), rtol=RTOL)
 
 
-def test_solve_raises_for_what_is_not_ported(graph):
-    """The whole family is registered; tracing and checkpoint/resume
-    (ROADMAP queue 1 item 4) still raise, and an unknown method is a
-    ValueError."""
-    _, tm, _ = graph
+def test_solve_raises_for_what_is_not_ported(graph, tmp_path):
+    """The whole family is registered; tracing and checkpoint/resume work
+    as in the reference (a traced solve returns its Tracer, a checkpointed
+    one commits snapshots a resume continues from, Lanczos refuses both
+    with ValueError), an unknown method is a ValueError, and the sharded
+    operator's fused expansion (ROADMAP queue 1 item 5) still raises."""
+    from repro_torch.ckpt import CheckpointPolicy, SolveCheckpointer
+    from repro_torch.ckpt.checkpoint import valid_steps
+    from repro_torch.obs import Tracer
+    _, tm, x0 = graph
     op, store = _port_op(tm)
     assert {"lanczos", "lobpcg", "svd"} <= set(solver_names())
-    for kw in (dict(trace="t.jsonl"), dict(checkpoint=object()),
-               dict(resume="ckpt")):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            solve(op, NEV, store=store, **kw)
+    path = tmp_path / "t.jsonl"
+    res = solve(op, NEV, store=store, tol=1e-6, max_iters=200, x0=x0,
+                trace=path)
+    assert isinstance(res.trace, Tracer) and path.exists()
+    root = str(tmp_path / "ck")
+    op, store = _port_op(tm)
+    full = solve(op, NEV, store=store, tol=1e-6, max_iters=200, x0=x0,
+                 checkpoint=CheckpointPolicy(root=root, every_restarts=1))
+    assert full.converged and full.resumed_step is None
+    assert valid_steps(os.path.join(root, "state"))[-1] == full.n_restarts
+    op, store = _port_op(tm)
+    resumed = solve(op, NEV, store=store, tol=1e-6, max_iters=200,
+                    resume=root)
+    assert resumed.resumed_step == full.n_restarts
+    np.testing.assert_array_equal(resumed.eigenvalues, full.eigenvalues)
+    with pytest.raises(ValueError, match="checkpoint/resume"):
+        solve(op, NEV, method="lanczos", store=store, resume=root)
     with pytest.raises(ValueError, match="unknown method"):
         solve(op, NEV, method="davidson", store=store)
-    for kw in ({"trace": "t.jsonl"}, {"checkpoint": object()},
-               {"resume": "ckpt"}):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            solve(op, NEV, store=store, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eigsh(op, NEV, store=store, checkpointer=object())
+    op, store = _port_op(tm)
+    direct = eigsh(op, NEV, store=store, tol=1e-6, max_restarts=200,
+                   checkpointer=SolveCheckpointer(
+                       None, method="krylov_schur", resume_from=root,
+                       params={"nev": NEV, "which": "LM",
+                               "block_size": B}))
+    np.testing.assert_array_equal(direct.eigenvalues, full.eigenvalues)
+
+    class Fused:
+        n, device = op.n, op.device
+
+        def capabilities(self):
+            return frozenset({"fused_expand"})
+
+    with pytest.raises(NotImplementedError, match="item 5"):
+        eigsh(Fused(), NEV, store=store)
 
 
 @pytest.mark.parametrize("fused", [True, False])

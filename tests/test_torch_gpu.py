@@ -18,14 +18,23 @@ plain version run in float32 on the same inputs: 2e-5 of the output's
 largest magnitude for float32 (sums in another order and another exp),
 2^-8 of it for bf16, whose output is rounded once to bf16 (half an ulp,
 2^-9 to 2^-8 of the value) and whose weights go into the PV product as
-a bf16 pair (P_hi + P_lo, 16 bits) on the tensor cores.
+a bf16 pair (P_hi + P_lo, 16 bits) on the tensor cores. A solve
+suspended at a restart boundary and resumed on the card is held bit for
+bit to the uninterrupted one under `torch.use_deterministic_algorithms`
+(which needs `CUBLAS_WORKSPACE_CONFIG` set before cuBLAS starts: the
+CholQR's small products run on cuBLAS).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.graphs import pack_tiles, rmat_graph
 from repro_torch.kernels import flashattn, gram, ops, spmm_tile, tsgemm
+
+# cuBLAS reads it when its first handle is made; set before any test runs
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 RTOL = 1e-6
 
@@ -831,3 +840,98 @@ def _numpy_tree(tree):
     if isinstance(tree, list):
         return [_numpy_tree(v) for v in tree]
     return tree.numpy()
+
+
+# -------------------------------------------------- checkpoint / resume
+class _Guard:
+    """A stand-in preemption guard, armed after `after` callbacks."""
+
+    def __init__(self, after):
+        self.after, self.n, self.armed = after, 0, False
+
+    def requested(self):
+        return self.armed
+
+    def cb(self, step, theta, res):
+        self.n += 1
+        self.armed = self.armed or self.n == self.after
+
+
+def _ckpt_graph():
+    from repro_torch.graphs import normalized_adjacency
+    n = 4096
+    r, c, v = rmat_graph(n, 40000, seed=5, symmetric=True)
+    r, c, v = normalized_adjacency(n, r, c, v)
+    return pack_tiles(n, n, r, c, v, block_shape=(64, 64), min_block_nnz=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,kw", [
+    ("krylov_schur", {"tol": 1e-5}), ("lobpcg", {"tol": 1e-4})])
+def test_suspend_resume_bit_identical_on_card(cuda, tmp_path, method, kw):
+    """Under deterministic algorithms (the COO side path's `index_add_`
+    sums in a fixed order) a solve suspended at boundary 3 and resumed
+    on the card equals the uninterrupted solve bit for bit."""
+    from repro_torch.ckpt import CheckpointPolicy, SolveSuspended
+    from repro_torch.core import GraphOperator, TieredStore, solve
+    tm = _ckpt_graph()
+
+    def run(**extra):
+        store = TieredStore(device=cuda)
+        return solve(GraphOperator(tm, store=store), 4, method=method,
+                     max_iters=200, store=store, **kw, **extra)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        full = run()
+        g = _Guard(after=3)
+        root = str(tmp_path / "ck")
+        with pytest.raises(SolveSuspended) as ei:
+            run(checkpoint=CheckpointPolicy(root=root, guard=g),
+                callback=g.cb)
+        res = run(resume=root)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert full.converged and res.converged
+    assert ei.value.step == res.resumed_step == 3
+    assert np.array_equal(res.eigenvalues, full.eigenvalues)
+    assert res.n_restarts == full.n_restarts
+    assert torch.equal(res.eigenvectors, full.eigenvectors)
+
+
+@pytest.mark.gpu
+def test_safs_ckpt_save_crash_and_resume_on_card(cuda, tmp_path):
+    """A crash between a page snapshot and its state commit on a SAFS
+    store on the card: the state commits stop at step 2, step 3's pages
+    exist, and a resume into a fresh page root continues from step 2 to
+    eigenvalues of the uninterrupted solve's spectrum."""
+    from repro_torch.ckpt import CheckpointPolicy
+    from repro_torch.ckpt.checkpoint import valid_steps
+    from repro_torch.core import GraphOperator, TieredStore, solve
+    from repro_torch.safs import CrashPoint, FaultPlan, FaultRule
+    tm = _ckpt_graph()
+
+    def run(root, plan=None, **extra):
+        store = TieredStore(device=cuda, backend="safs", backend_opts={
+            "root": str(tmp_path / root), "faults": plan})
+        try:
+            return solve(GraphOperator(tm, store=store), 4, tol=1e-5,
+                         max_iters=200, store=store, **extra)
+        finally:
+            store.close()
+
+    ref = run("ref")
+    ck = str(tmp_path / "ck")
+    plan = FaultPlan([FaultRule(site="ckpt.save", kind="crash", at=3)])
+    with pytest.raises(CrashPoint):
+        run("crash", plan, checkpoint=CheckpointPolicy(root=ck))
+    assert valid_steps(os.path.join(ck, "state")) == [1, 2]
+    assert 3 in valid_steps(os.path.join(ck, "pages"))
+    res = run("fresh", resume=ck)
+    assert res.resumed_step == 2 and res.converged
+    # ±1 are eigenvalues many times over (one per connected component),
+    # and which copies a solve finds follows the atomics of the COO side
+    # path: each resumed eigenvalue lies within rtol 1e-5 of one of ref's
+    rel = np.abs(res.eigenvalues[:, None] - ref.eigenvalues[None, :]) \
+        / np.abs(ref.eigenvalues)[None, :]
+    assert np.all(rel.min(axis=1) <= 1e-5), rel

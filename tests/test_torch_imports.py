@@ -39,7 +39,12 @@ def test_import_loads_no_jax_and_no_reference_module():
               "repro_torch.examples.spectral_cluster",
               "repro_torch.core.lanczos", "repro_torch.core.lobpcg",
               "repro_torch.core.svd", "repro_torch.benchmarks",
-              "repro_torch.benchmarks.bench_eigen"):
+              "repro_torch.benchmarks.bench_eigen", "repro_torch.ckpt",
+              "repro_torch.ckpt.checkpoint", "repro_torch.ckpt.solver",
+              "repro_torch.ft", "repro_torch.ft.preemption",
+              "repro_torch.obs.metrics", "repro_torch.obs.progress",
+              "repro_torch.obs.report", "repro_torch.graphs.partition",
+              "repro_torch.examples.quickstart"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -143,8 +148,9 @@ def test_model_entry_points_without_device_raise_without_cuda(monkeypatch):
 
 def test_ooc_lanczos_example_runs_on_the_cpu(tmp_path, capsys):
     """`python -m repro_torch.examples.ooc_lanczos --device cpu` at a small
-    size: SAFS and RAM spectra agree for both solvers, and what is not
-    ported raises."""
+    size: SAFS and RAM spectra agree for both solvers, and a checkpointed
+    run is suspended by a real SIGTERM (the hidden `--preempt-after`
+    hook) and resumed to the RAM spectrum."""
     from repro_torch.examples import ooc_lanczos
     ooc_lanczos.main(["--n", "600", "--nnz", "5000", "--nev", "4",
                       "--device", "cpu", "--root", str(tmp_path / "p"),
@@ -157,5 +163,14 @@ def test_ooc_lanczos_example_runs_on_the_cpu(tmp_path, capsys):
                       "--root", str(tmp_path / "l")])
     assert "safs backend matches ram backend to rtol 1e-5" in \
         capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ooc_lanczos.main(["--checkpoint", str(tmp_path), "--device", "cpu"])
+    ck = str(tmp_path / "ck")
+    small = ["--n", "600", "--nnz", "5000", "--nev", "4", "--device", "cpu"]
+    ooc_lanczos.main(small + ["--root", str(tmp_path / "c1"),
+                              "--checkpoint", ck, "--preempt-after", "2"])
+    assert "solve suspended at restart 2; resume with --resume" in \
+        capsys.readouterr().out
+    ooc_lanczos.main(small + ["--root", str(tmp_path / "c2"),
+                              "--resume", ck])
+    out = capsys.readouterr().out
+    assert "safs backend matches ram backend to rtol 1e-5" in out
+    assert "page snapshot:" in out

@@ -770,10 +770,12 @@ def test_make_backend_and_store_options(disk_tmp):
     b.close()
     with pytest.raises(ValueError, match="unknown storage backend"):
         make_backend("tape")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        port_scrub.repair_from_checkpoint(b, os.path.join(disk_tmp, "ck"))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        port_scrub.newest_verified_step(os.path.join(disk_tmp, "ck"))
+    # with no snapshot under the root nothing is verified or repaired
+    assert port_scrub.repair_from_checkpoint(
+        b, os.path.join(disk_tmp, "ck")) == {"step": None, "repaired": [],
+                                             "unrepaired": []}
+    assert port_scrub.newest_verified_step(
+        os.path.join(disk_tmp, "ck")) is None
 
 
 def test_scrub_cli_over_a_reference_store(disk_tmp, capsys):

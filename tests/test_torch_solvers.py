@@ -33,6 +33,7 @@ from repro_torch.benchmarks import bench_eigen
 from repro_torch.convert import tiled_from_arrays
 from repro_torch.core import residuals, solver as port_solver
 from repro_torch.graphs import synth
+from repro_torch.obs import Tracer
 
 N, NNZ = 1200, 10000
 RTOL = 1e-5
@@ -479,8 +480,12 @@ def test_lobpcg_stall_guard_and_impl_default(tm):
                                np.sort(ref.eigenvalues), rtol=RTOL)
     import inspect
     assert inspect.signature(P.lobpcg).parameters["impl"].default == "auto"
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.lobpcg(_port_op(tm), 4, checkpointer=object())
+    from repro_torch.ckpt import SolveCheckpointer
+    # a resume-only checkpointer on an empty root starts the solve afresh
+    fresh = P.lobpcg(_port_op(tm), 4, tol=1e-3, max_iters=300,
+                     checkpointer=SolveCheckpointer(
+                         None, method="lobpcg", resume_from=os.devnull))
+    assert fresh.converged and fresh.resumed_step is None
     with pytest.raises(ValueError, match="LA"):
         P.lobpcg(_port_op(tm), 4, which="LM")
 
@@ -575,10 +580,11 @@ def test_registry_and_dispatch(tm):
         P.solve(op, 1, method="nope")
     with pytest.raises(ValueError, match="at_op"):
         P.solve(op, 2, method="svd")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.solve(op, 2, trace="t.jsonl")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.solve(op, 2, method="lobpcg", checkpoint=object())
+    t = P.solve(op, 2, method="lobpcg", tol=1e-3, max_iters=300,
+                trace=Tracer())
+    assert t.converged and t.trace.counts()["spans"] > 0
+    with pytest.raises(ValueError, match="checkpoint/resume"):
+        P.solve(op, 2, method="svd", checkpoint=object())
     seen = {}
 
     class Spy:
