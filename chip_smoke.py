@@ -150,12 +150,44 @@ zeroed just before and read just after, each solver kernel launched:
  23. quickstart: `repro_torch.examples.quickstart` on the card (n = 5,000
      against scipy's eigsh), converged, its IOStats printed.
 
+The shared-store layer and the paper's measurement ladders
+(`repro_torch.benchmarks`), after 22 on the rmat-1M image (24-25) and
+after 23 (26-28); each with the launch counters zeroed just before and
+read just after, and every kernel it names launched:
+ 24. namespaces: phase 5's solve on a fresh RAM tier (solo), then in two
+     namespaces of one CUDA TieredStore one after the other, then in two
+     more from two threads at once, all under deterministic algorithms:
+     each converged with true residuals ≤ 1e-4 and eigenvalues at rtol
+     1e-5 of phase 5's, each namespace's IOStats split equal to the solo
+     solve's to the byte, the splits summing to the store's counters
+     exactly, `drop_namespace` freeing the namespace's device bytes and
+     keeping its stats; SpMM, gram and tsgemm launched in the threads;
+ 25. SpMM ladder (bench_spmm, Fig. 6-8) over phase 3's graph: the coo
+     and +hybrid rungs (the +blocking image, every entry in a 64×64
+     block, is left out at 2^20 and its size printed), then the whole
+     ladder over `rmat_graph(2**18, 2**21, seed=1, symmetric=True)`
+     normalized; every rung at k = 1 and 4 within 1e-5 of Σ|terms| of
+     its plain version (`bench_spmm.validate`), the SpMM kernel launched;
+     the coo rung's time beside phase 4's SpMM kernel, the solver
+     image's COO remainder alone and its whole matmat;
+ 26. TAS ladder (bench_tasops, Fig. 9-11) at n = 2^20, b = 4, m = 16,
+     64, 256: `validate`, and io_bytes the same whole number of n·b·4
+     blocks as a CPU run at n = 6,000 gives; gram and tsgemm launched;
+ 27. subspace passes (bench_subspace_io) at n = 2^20, b = 4, nb =
+     SUBIO_NB, the e2e and SAFS parity solves at the reference's sizes:
+     `validate`; SpMM, gram and tsgemm launched;
+ 28. SAFS ladder (bench_safs) at n = 2^20, b = 4, m = SAFS_BENCH_M, the
+     read ladder over 8 files of 64 MiB beside the bare `preadv` floor,
+     the temporary directory's filesystem printed; gram and tsgemm
+     launched.
+
 Then one JSON line of kernels (the four PR-15 rows, the nine width rows
 of 14, flash attention), the card line, and the final result line.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -203,6 +235,11 @@ LOBPCG_TOL, LOBPCG_MAX = 1e-5, 300
 CHEB_DEGREE = 10
 SVD_NSV, SVD_BLOCK, SVD_RESID_TOL = 4, 2, 1e-3
 SI_GAP, SI_CG_TOL, SI_CG_MAXITER = 0.05, 1e-7, 400
+
+# the ladders' subspace widths at n = 2^20 (phases 27-28), cut from the
+# reference's nb = 16 and m = 64 to keep the new phases near two minutes:
+# both page the subspace through Python at 0.1-0.9 GB/s
+SUBIO_NB, SAFS_BENCH_M = 8, 32
 
 # flash attention at yi-9b's prefill shapes (B, H, Hkv, S, d), bf16
 FLASH_SERVE = (4, 32, 4, 2048, 128)
@@ -1727,6 +1764,316 @@ def quickstart_phase(torch) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------- shared store, ladders
+
+def kernel_launches() -> dict:
+    """The solver kernels' launches since the counters were zeroed."""
+    from repro_torch.kernels import gram, spmm_tile, tsgemm
+    return {"spmm_blocksparse": spmm_tile.LAUNCHES, "gram": gram.LAUNCHES,
+            "tsgemm": tsgemm.LAUNCHES}
+
+
+def require_launched(label: str, launches: dict, names) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"{label}: kernel {name} was not launched")
+
+
+def namespace_phase(torch, op, res_ks) -> None:
+    """Phase 24: phase 5's solve in two namespaces of one CUDA
+    TieredStore, one after the other, then in two threads, beside a solo
+    solve, all under deterministic algorithms (the COO side path sums in
+    a fixed order, so every run takes the same course)."""
+    import threading
+    from repro_torch.core import TieredStore, solve, true_residuals
+    t_phase = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        solo, wall_solo = ckpt_solve(torch, op, "namespace solo",
+                                     **KS_SOLVE)
+        store = TieredStore(device=op.device)
+        results, walls = {}, {}
+        for sid in ("seq0", "seq1"):
+            results[sid], walls[sid] = ckpt_solve(
+                torch, op, f"namespace {sid}", store=store.namespace(sid),
+                **KS_SOLVE)
+        ops = {sid: copy.copy(op) for sid in ("thr0", "thr1")}
+        errors = []
+
+        def worker(sid):
+            try:
+                ns = store.namespace(sid)
+                ops[sid].store = ns
+                results[sid] = solve(ops[sid], NEV, store=ns, **KS_SOLVE)
+            except Exception as e:          # reported on the main thread
+                errors.append(f"{sid}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=worker, args=(sid,))
+                   for sid in ops]
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        walls["threads"] = time.perf_counter() - t0
+        launches = kernel_launches()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"namespace threads failed: {errors}")
+    require_launched("namespace threads", launches,
+                     ("spmm_blocksparse", "gram", "tsgemm"))
+    stats = store.namespace_stats()
+    parent = store.stats.as_dict()
+    counts = ("host_bytes_read", "host_bytes_written", "host_reads",
+              "host_writes", "cache_hits", "cache_misses", "passes",
+              "pass_bytes_read")
+    sums = {f: sum(d[f] for d in stats.values()) for f in counts}
+    reconciled = all(sums[f] == parent[f] for f in counts)
+    for sid, res in results.items():
+        resid = true_residuals(op, res.eigenvectors, res.eigenvalues)
+        rel = np.abs(np.sort(res.eigenvalues) - np.sort(res_ks.eigenvalues)
+                     ) / np.abs(np.sort(res_ks.eigenvalues))
+        log(f"namespace {sid}: converged {res.converged}, restarts "
+            f"{res.n_restarts} | IOStats split equal to the solo solve's: "
+            f"{stats[sid] == solo.io_stats} | eigenvalues bit-equal to the "
+            f"solo solve's {np.array_equal(res.eigenvalues, solo.eigenvalues)}"
+            f", rel err to phase 5's {rel.max():.2e} (tol 1e-5) | true "
+            f"residuals max {resid.max():.2e} (limit {RESID_TOL:g})")
+        if not (res.converged and np.all(resid <= RESID_TOL)):
+            fail(f"namespace {sid}: not converged or residuals {resid}")
+        if stats[sid] != solo.io_stats:
+            fail(f"namespace {sid}: IOStats split {stats[sid]} differs "
+                 f"from the solo solve's {solo.io_stats}")
+        if not rel.max() <= 1e-5:
+            fail(f"namespace {sid}: eigenvalues off phase 5's by {rel}")
+    log(f"namespace: walls solo {wall_solo:.3f} s | sequential "
+        f"{walls['seq0']:.3f} + {walls['seq1']:.3f} s | two threads "
+        f"{walls['threads']:.3f} s | launches in the threads "
+        f"{json.dumps(launches)} | splits sum to the store's counters "
+        f"exactly: {reconciled} ({json.dumps(sums)})")
+    if not reconciled:
+        fail(f"namespace splits {sums} do not sum to the store's {parent}")
+    before = store.namespace("thr0").device_bytes()
+    kept = stats["thr0"]
+    store.drop_namespace("thr0")
+    after = store.namespace("thr0").device_bytes()
+    log(f"namespace: drop_namespace('thr0') freed {before} device bytes "
+        f"(left {after}), stats kept: "
+        f"{store.namespace_stats()['thr0'] == kept}")
+    if not (before > 0 and after == 0
+            and store.namespace_stats()["thr0"] == kept):
+        fail("drop_namespace did not free the namespace or lost its stats")
+    store.close()
+    log(f"namespace: phase 24 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def block_count(r, c, n: int) -> int:
+    """Distinct 64×64 blocks that hold an entry: the all-dense image's
+    block count, without packing it."""
+    nbc = -(-n // BLOCK[1])
+    keys = (r // BLOCK[0]).astype(np.int64) * nbc + c // BLOCK[1]
+    return int(np.unique(keys).size)
+
+
+def spmm_ladder_phase(torch, op, graph, spmm_row) -> None:
+    """Phase 25: bench_spmm's Fig. 6 ladder at 2^20 (coo and +hybrid) over
+    phase 3's graph and at 2^18 (every rung), each rung at k = 1 and 4
+    held against its plain version (`bench_spmm.validate`)."""
+    from repro_torch.benchmarks import bench_spmm
+    from repro_torch.kernels import spmm_tile
+    from repro_torch.kernels.spmm_ref import coo_spmm_ref
+    t_phase = time.perf_counter()
+    dev = op.device
+    n = 2 ** N_LOG2
+    r, c, _ = graph
+    nb_all = block_count(r, c, n)
+    log(f"spmm ladder 2^{N_LOG2}: +blocking left out: all {r.size} entries "
+        f"in dense 64x64 blocks would be {nb_all} blocks "
+        f"({nb_all * 64 * 64 * 4 / 1e9:.1f} GB float32), more than the "
+        f"card holds")
+    zero_counters()
+    m = bench_spmm.collect(device=dev, n=n, nnz=2 ** NNZ_LOG2, graph=graph,
+                           blocking=False)
+    torch.cuda.synchronize()
+    launched = spmm_tile.LAUNCHES
+    ladder_log(m, launched)
+    # the solver's own image (phase 3, at least 4 entries per block):
+    # its COO remainder alone and its whole matmat, at k = 4
+    x = torch.randn((n, BLOCK_SIZE), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(11))
+    rows, cols, vals = op._coo
+    timer = Timer(torch, dev)
+    coo_ms = timer.ms(lambda: coo_spmm_ref(rows, cols, vals, x, n))
+    matmat_ms = timer.ms(lambda: op.matmat(x))
+    k4 = m["k"][str(BLOCK_SIZE)]["us"]
+    log(f"spmm ladder 2^{N_LOG2}, k={BLOCK_SIZE}: coo rung (all "
+        f"{m['entries']} entries) {k4['coo'] / 1e3:.3f} ms | +hybrid "
+        f"matmat (blocks of >= 8 entries + {m['hybrid']['coo']} COO) "
+        f"{k4['hybrid'] / 1e3:.3f} ms | phase 4's SpMM kernel on the "
+        f"solver's image (>= 4 entries per block) {spmm_row['ms']:.3f} ms, "
+        f"its COO remainder ({vals.shape[0]} entries) alone {coo_ms:.3f} ms"
+        f", its whole matmat {matmat_ms:.3f} ms (L2 flushed, medians)")
+    del x
+    n18 = 2 ** 18
+    from repro_torch.graphs import normalized_adjacency, rmat_graph
+    r18, c18, v18 = normalized_adjacency(n18, *rmat_graph(
+        n18, 2 ** 21, seed=GRAPH_SEED, symmetric=True))
+    zero_counters()
+    m18 = bench_spmm.collect(device=dev, n=n18, nnz=2 ** 21,
+                             graph=(r18, c18, v18))
+    torch.cuda.synchronize()
+    ladder_log(m18, spmm_tile.LAUNCHES)
+    log(f"spmm ladder: phase 25 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def ladder_log(m: dict, launched: int) -> None:
+    from repro_torch.benchmarks import bench_spmm
+    label = f"spmm ladder n={m['n']}"
+    imgs = {t: m[t] for t in ("blocking", "hybrid") if t in m}
+    log(f"{label}: {m['entries']} entries | images "
+        + ", ".join(f"+{t} {d['nblocks']} blocks + {d['coo']} COO "
+                    f"({d['nbytes_image'] / 1e9:.2f} GB)"
+                    for t, d in imgs.items())
+        + f" | imbalance over {m['workers']} workers: round-robin "
+        f"{m['balance']['imb_naive']:.3f}, LPT {m['balance']['imb_lpt']:.3f}"
+        f" | spmm_blocksparse launches {launched}")
+    for k, rec in m["k"].items():
+        log(f"{label}, k={k}: ms per call "
+            + ", ".join(f"{t} {us / 1e3:.3f}" for t, us in rec["us"].items())
+            + f" | rel err to the plain version "
+            f"{json.dumps(rec['max_rel_err'])} (tol {bench_spmm.TOL:g} of "
+            f"Σ|terms|) | SEM/IM modeled {rec['sem']['ratio']:.2f}")
+    try:
+        bench_spmm.validate(m)
+    except AssertionError as e:
+        fail(f"{label}: {e}")
+    if launched <= 0:
+        fail(f"{label}: the blocked rungs launched no spmm_blocksparse")
+
+
+def tasops_phase(torch, dev) -> None:
+    """Phase 26: bench_tasops's Fig. 9-11 ladder at n = 2^20, b = 4, m =
+    16, 64, 256; its io_bytes a whole number of blocks, as a CPU run at
+    its own n gives them."""
+    from repro_torch.benchmarks import bench_tasops
+    t_phase = time.perf_counter()
+    zero_counters()
+    m = bench_tasops.collect(device=dev, n=2 ** 20, b=4)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    cpu = bench_tasops.collect(device="cpu", smoke=True)
+    blk, blk_cpu = m["n"] * m["b"] * 4, cpu["n"] * cpu["b"] * 4
+    for ms, r in m["m"].items():
+        blocks = {t: r[t]["io_bytes"] / blk
+                  for t in ("naive", "cache", "lazy_scale")}
+        blocks_cpu = {t: cpu["m"][ms][t]["io_bytes"] / blk_cpu
+                      for t in blocks}
+        log(f"tasops m={ms}: io_bytes naive {r['naive']['io_bytes']}, "
+            f"+recent-cache {r['cache']['io_bytes']}, +lazy-scale "
+            f"{r['lazy_scale']['io_bytes']} = {json.dumps(blocks)} blocks "
+            f"of n·b·4 (CPU run at n={cpu['n']}: {json.dumps(blocks_cpu)}) "
+            f"| ms naive {r['naive']['us'] / 1e3:.3f}, +recent-cache "
+            f"{r['cache']['us'] / 1e3:.3f}, mv_trans_mv g2 "
+            f"{r['mv_trans_mv_us']['g2'] / 1e3:.3f} g8 "
+            f"{r['mv_trans_mv_us']['g8'] / 1e3:.3f} | modeled tier "
+            f"io/compute {r['tier']['io_over_compute']:.2f}")
+        if blocks != blocks_cpu:
+            fail(f"tasops m={ms}: {blocks} blocks, the CPU run {blocks_cpu}")
+    try:
+        bench_tasops.validate(m)
+    except AssertionError as e:
+        fail(f"tasops: {e}")
+    log(f"tasops: launches {json.dumps(launches)}")
+    require_launched("tasops", launches, ("gram", "tsgemm"))
+    log(f"tasops: phase 26 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def subspace_io_phase(torch, dev) -> None:
+    """Phase 27: bench_subspace_io's expansion and compress ladders at n =
+    2^20, b = 4, nb = SUBIO_NB, its e2e and SAFS parity solves at the
+    reference's sizes; `validate` on the card's metrics."""
+    from repro_torch.benchmarks import bench_subspace_io
+    t_phase = time.perf_counter()
+    zero_counters()
+    m = bench_subspace_io.collect(device=dev, n=2 ** 20, b=4, nb=SUBIO_NB)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    exp, comp, e2e, sf = (m["expansion"], m["compress"], m["eigsh_e2e"],
+                          m["safs"])
+    log(f"subspace_io: expansion n={exp['n']} nb={exp['nblocks']}: bytes "
+        f"read fused {exp['fused']['host_bytes_read']} "
+        f"({exp['fused']['passes']} passes), unfused "
+        f"{exp['unfused']['host_bytes_read']} "
+        f"({exp['unfused']['passes']}), ratio {exp['fused_over_unfused']:.3f}"
+        f" | compress k_keep={comp['k_keep']}: passes fused "
+        f"{comp['fused']['passes']}, unfused {comp['unfused']['passes']}, "
+        f"reads/subspace {comp['fused']['reads_over_subspace']:.2f}")
+    log(f"subspace_io: e2e n={e2e['n']}: restarts fused "
+        f"{e2e['fused']['n_restarts']} unfused {e2e['unfused']['n_restarts']}"
+        f", passes {e2e['fused']['passes']} / {e2e['unfused']['passes']}, "
+        f"pass bytes {e2e['fused']['pass_bytes_read']} / "
+        f"{e2e['unfused']['pass_bytes_read']}, parity {e2e['max_rel_err']:.1e}"
+        f" | safs: expansion ms fused {sf['fused']['us'] / 1e3:.1f} unfused "
+        f"{sf['unfused']['us'] / 1e3:.1f} (physical bytes read "
+        f"{sf['fused']['physical_bytes_read']} / "
+        f"{sf['unfused']['physical_bytes_read']}), eigsh parity "
+        f"{sf['eigsh_max_rel_err']:.1e} | launches {json.dumps(launches)}")
+    try:
+        bench_subspace_io.validate(m)
+    except AssertionError as e:
+        fail(f"subspace_io: {e}")
+    require_launched("subspace_io", launches,
+                     ("spmm_blocksparse", "gram", "tsgemm"))
+    log(f"subspace_io: phase 27 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def safs_read_log(label: str, rt: dict) -> None:
+    for ps, r in rt.items():
+        log(f"{label} {int(ps) // 1024} KiB pages ({r['n_pages']} pages): "
+            f"legacy {r['legacy_pages_per_s']:,.0f}, batched "
+            f"{r['batched_pages_per_s']:,.0f}, readahead pool "
+            f"{r['readahead_pool_pages_per_s']:,.0f} pages/s | bare preadv "
+            f"floor {r['bare_GB_per_s']:.3f} GB/s = "
+            f"{r['bare_pages_per_s']:,.0f} pages/s | batched takes "
+            f"{r['batched_over_bare_time']:.2f}x the bare read's time")
+
+
+def safs_bench_phase(torch, dev) -> None:
+    """Phase 28: bench_safs at n = 2^20, b = 4, m = SAFS_BENCH_M, its
+    read ladder over 8 files of 64 MiB beside the bare-read floor, under
+    the temporary directory (its filesystem printed)."""
+    from repro_torch.benchmarks import bench_safs
+    t_phase = time.perf_counter()
+    log(f"safs bench: {root_line(tempfile.gettempdir())}")
+    zero_counters()
+    m = bench_safs.collect(device=dev, n=2 ** 20, b=4, m=SAFS_BENCH_M,
+                           nfiles=8, file_kb=64 << 10)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    safs_read_log("safs bench (temporary directory)", m["read_throughput"])
+    st, en, ca, ig = (m["safs_stream"], m["safs_endurance"],
+                      m["safs_cache"], m["safs_integrity"])
+    on = st["prefetch_on"]
+    log(f"safs bench m={m['m']}: mv_times_mat prefetch off "
+        f"{st['prefetch_off']['us'] / 1e3:.1f} ms, on "
+        f"{on['us'] / 1e3:.1f} ms (overlap fraction "
+        f"{on['overlap_fraction']:.2f}) = "
+        f"{on['logical_bytes_read'] / on['us'] / 1e3:.3f} GB/s | "
+        f"endurance: physical/logical writes "
+        f"{en['disk_over_logical_writes']:.4f} ({en['physical_bytes_written']}"
+        f" / {en['logical_bytes_written']}) | reorth hit rate pinned "
+        f"{ca['page_hit_rate']:.3f}, LRU only {ca['lru_only_hit_rate']:.3f}"
+        f" | verify-on-read +{100 * ig['verify_overhead']:.1f}%, scrub "
+        f"{ig['scrub_pages_per_s']:,.0f} pages/s | launches "
+        f"{json.dumps(launches)}")
+    require_launched("safs bench", launches, ("gram", "tsgemm"))
+    log(f"safs bench: phase 28 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def flash_phase(torch, timer, dev):
     """The flash kernel at yi-9b's prefill shapes and one ragged,
     non-causal shape, against its plain version in float32."""
@@ -2001,7 +2348,7 @@ def main() -> None:
     build_s = build()
     dev = torch.device("cuda", 0)
 
-    tm, _ = make_graph(N_LOG2, NNZ_LOG2)
+    tm, graph = make_graph(N_LOG2, NNZ_LOG2)
     t0 = time.perf_counter()
     op = GraphOperator(tm, device=dev)
     torch.cuda.synchronize()
@@ -2048,7 +2395,9 @@ def main() -> None:
     checkpoint_phase(torch, op)                      # phase 20
     safs_crash_phase(torch, op, res32, res_safs)     # phase 21
     traced_phase(torch, op)                          # phase 22
-    del op, tm                           # free the 12.86 GB image
+    namespace_phase(torch, op, res32)                # phase 24
+    spmm_ladder_phase(torch, op, graph, rows[0])     # phase 25
+    del op, tm, graph                    # free the 12.86 GB image
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2062,6 +2411,9 @@ def main() -> None:
     t_family += time.perf_counter() - t0
     del tm16
     quickstart_phase(torch)                          # phase 23
+    tasops_phase(torch, dev)                         # phase 26
+    subspace_io_phase(torch, dev)                    # phase 27
+    safs_bench_phase(torch, dev)                     # phase 28
     # each width row's launches: the solve that runs the kernel at it
     for r in family:
         kernel, width = r["name"].rsplit("_", 1)

@@ -23,6 +23,7 @@ the blocks with the reference's draw through `set_block`).
 from __future__ import annotations
 
 import dataclasses
+import re
 import threading
 from typing import List, Sequence
 
@@ -49,19 +50,39 @@ class _Block:
 
 
 class MultiVector:
-    """A tall-and-skinny (n × m) matrix as a sequence of column blocks."""
+    """A tall-and-skinny (n × m) matrix as a sequence of column blocks.
+
+    `store=None` builds the MultiVector its own `TieredStore` on
+    `backend` ("ram" | "safs") with `backend_opts`, on `device` (the CUDA
+    card unless `device="cpu"`). Auto names are `mv<N>`; a name of that
+    form given explicitly (a resumed solve's) raises the counter past it,
+    so no later auto name takes a live one."""
 
     _counter = 0
-    _counter_lock = threading.Lock()
+    _counter_lock = threading.Lock()   # concurrent sessions auto-name MVs
 
     def __init__(self, store: TieredStore | None, n: int, *,
                  name: str | None = None, group_size: int = 8,
-                 readahead: int = 2, impl: kops.Impl = "auto"):
+                 readahead: int = 2, impl: kops.Impl = "auto",
+                 backend="ram", backend_opts: dict | None = None,
+                 device=None):
         if name is None:
             with MultiVector._counter_lock:
                 MultiVector._counter += 1
                 name = f"mv{MultiVector._counter}"
-        self.store = store if store is not None else TieredStore()
+        else:
+            # A resumed solve recreates MultiVectors under their
+            # checkpointed auto-names; keep the counter ahead of them so
+            # later auto-named instances can't collide in a shared store.
+            m = re.fullmatch(r"mv(\d+)", name)
+            if m:
+                with MultiVector._counter_lock:
+                    MultiVector._counter = max(MultiVector._counter,
+                                               int(m.group(1)))
+        if store is None:  # own store on the requested backend ("ram"|"safs")
+            store = TieredStore(backend=backend, backend_opts=backend_opts,
+                                device=device)
+        self.store = store
         self.n = n
         self.name = name
         self.group_size = group_size
@@ -278,20 +299,29 @@ class MultiVector:
                  fused: bool = True, pass_acc_bytes: int | None = None
                  ) -> "MultiVector":
         """V_new = V @ Q for restart compression (Krylov–Schur). Q is
-        (m, m_new); output blocks of widths new_widths.
+        (m, m_new), a tensor or a numpy array; output blocks of widths
+        new_widths.
 
         fused=True: one streamed read computes every output block (chunked
-        only past `pass_acc_bytes` of accumulators, default
-        COMPRESS_PASS_ACC_BYTES). fused=False: one full pass per output
-        block (k_keep/b subspace reads), kept for parity tests."""
+        only past `pass_acc_bytes` of accumulators, default the smaller of
+        COMPRESS_PASS_ACC_BYTES and the store's `compress_acc_bytes()`).
+        fused=False: one full pass per output block (k_keep/b subspace
+        reads), kept for parity tests."""
+        q = self.store.as_tensor(q).float()
         if q.shape[0] != self.ncols or sum(new_widths) != q.shape[1]:
             raise ValueError(f"q {tuple(q.shape)} does not map {self.ncols} "
                              f"columns onto {list(new_widths)}")
         out = MultiVector(self.store, self.n, group_size=self.group_size,
                           readahead=self.readahead, impl=self.impl)
         if fused and self.nblocks:
-            budget = (COMPRESS_PASS_ACC_BYTES if pass_acc_bytes is None
-                      else pass_acc_bytes)
+            budget = pass_acc_bytes
+            if budget is None:
+                # a namespace under a device budget caps the transient
+                # accumulators at its share (`compress_acc_bytes`); a
+                # plain store keeps the global default
+                cap = self.store.compress_acc_bytes()
+                budget = (COMPRESS_PASS_ACC_BYTES if cap is None
+                          else min(COMPRESS_PASS_ACC_BYTES, cap))
             groups: List[List[int]] = [[]]
             acc = 0
             for w in new_widths:

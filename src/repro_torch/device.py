@@ -18,3 +18,11 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait until the work queued on `device` has run (nothing to wait
+    for on the CPU): a host-clock timing on the card ends here."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -232,3 +232,8 @@ def pack_tiles(n_rows: int, n_cols: int, rows: np.ndarray, cols: np.ndarray,
         coo_rows=s_rows.astype(np.int32), coo_cols=s_cols.astype(np.int32),
         coo_vals=s_vals.astype(np.float32),
     )
+
+
+def csr_nbytes(rows: np.ndarray, n_rows: int, idx_bytes: int = 8) -> int:
+    """Plain CSR storage (indices only) for the format-size comparison."""
+    return idx_bytes * (rows.size + n_rows + 1)

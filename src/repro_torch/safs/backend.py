@@ -11,10 +11,7 @@ bytes physically live. Both take and return tensors:
     memory copies asynchronously at full rate. Copies go on PyTorch's
     current stream, so a later read of the same block is ordered after
     its write, and nothing reads those bytes on the host.
-  * `SafsBackend` is the paper's layer (without the reference's
-    namespace reclamation, `drop_namespace` and
-    `sweep_orphan_namespaces`, which come with the serving layer,
-    ROADMAP.md queue 1 item 6): one PageFile per data_id under a
+  * `SafsBackend` is the paper's layer: one PageFile per data_id under a
     root directory, fronted by a shared LRU `PageCache` with async
     write-behind demotions, and a multi-worker readahead `Prefetcher`.
     All disk reads go through the batched vectored engine
@@ -43,7 +40,9 @@ the queue).
 from __future__ import annotations
 
 import os
+import shutil
 import threading
+import time
 import urllib.parse
 from typing import Dict, Iterable, Optional, Protocol, runtime_checkable
 
@@ -141,6 +140,10 @@ class RamBackend:
 
     def has(self, data_id: str) -> bool:
         return data_id in self._bufs
+
+    def drop_namespace(self, session_id: str) -> None:
+        # entries are deleted per-id by the store; nothing else to reclaim
+        pass
 
     def pin(self, data_id: str) -> None:        # no page cache to pin in
         pass
@@ -487,6 +490,21 @@ class SafsBackend:
         with self._lock:
             return data_id in self._files
 
+    def drop_namespace(self, session_id: str) -> None:
+        """Reclaim a retired session: delete any of its page files still
+        open (the store normally deletes them per-id first) and remove the
+        now-empty per-namespace subdir. The session's physical IOStats
+        split survives for post-mortem reporting."""
+        with self._lock:
+            ids = [d for d in self._files if ns_of(d) == session_id]
+        for d in ids:
+            self.delete(d)
+        try:
+            os.rmdir(os.path.join(self.root,
+                                  urllib.parse.quote(session_id, safe="")))
+        except OSError:
+            pass        # never created, or a straggler file — leave it
+
     # ------------------------------------------------------------ integrity
     def scrub_file(self, data_id: str) -> list:
         """Verify one file's pages against its checksum block, straight
@@ -529,6 +547,31 @@ class SafsBackend:
             self._quarantine.discard((data_id, int(page)))
         self.integrity.add(pages_repaired=1)
         trace.event("safs.repair", file=data_id, page=int(page))
+
+    def sweep_orphan_namespaces(self, *, live: Iterable[str] = (),
+                                grace_s: float = 3600.0) -> list:
+        """Startup GC for a root reused after a killed process:
+        per-session page subdirs that belong to no live session and have
+        not been touched for `grace_s` seconds are reclaimed (their files
+        were adopted by `_reopen`, so `drop_namespace` both closes and
+        deletes them). Age-gating spares a directory a concurrent process
+        just created. Returns the swept session ids."""
+        live = set(live)
+        swept = []
+        now = time.time()
+        for d in sorted(os.listdir(self.root)):
+            p = os.path.join(self.root, d)
+            if not os.path.isdir(p):
+                continue
+            sid = urllib.parse.unquote(d)
+            if sid in live or now - os.path.getmtime(p) < grace_s:
+                continue
+            self.drop_namespace(sid)
+            if os.path.isdir(p):       # stragglers drop_namespace spared
+                shutil.rmtree(p, ignore_errors=True)
+            trace.event("safs.gc_namespace", namespace=sid)
+            swept.append(sid)
+        return swept
 
     def pin(self, data_id: str) -> None:
         if self.pin_pages:
@@ -626,7 +669,6 @@ def make_backend(spec, *, device: torch.device | str = "cpu", **opts):
     if spec == "safs":
         if "root" not in opts:
             import atexit
-            import shutil
             import tempfile
             opts["root"] = tempfile.mkdtemp(prefix="safs_")
             # an auto-created root is ours to reclaim; long-lived processes

@@ -935,3 +935,132 @@ def test_safs_ckpt_save_crash_and_resume_on_card(cuda, tmp_path):
     rel = np.abs(res.eigenvalues[:, None] - ref.eigenvalues[None, :]) \
         / np.abs(ref.eigenvalues)[None, :]
     assert np.all(rel.min(axis=1) <= 1e-5), rel
+
+
+# ------------------------------------------- shared store and the ladders
+def _zero_launches():
+    for mod in (spmm_tile, gram, tsgemm):
+        mod.LAUNCHES = 0
+
+
+def _launches():
+    return {"spmm": spmm_tile.LAUNCHES, "gram": gram.LAUNCHES,
+            "tsgemm": tsgemm.LAUNCHES}
+
+
+@pytest.mark.gpu
+def test_namespace_solves_on_card_split_like_solo(cuda):
+    """chip_smoke.py phase 24 at 2^12: Krylov–Schur in two namespaces of
+    one CUDA store, one after the other and in two threads, under
+    deterministic algorithms: each namespace's IOStats split equals a
+    solo solve's, the splits sum to the store's counters, every kernel
+    launched, and dropping a namespace frees its device bytes."""
+    import threading
+    from repro_torch.core import GraphOperator, TieredStore, solve
+    from repro_torch.graphs import normalized_adjacency
+    n = 2 ** 12
+    r, c, v = normalized_adjacency(n, *rmat_graph(n, 2 ** 15, seed=1,
+                                                  symmetric=True))
+    tm = pack_tiles(n, n, r, c, v, block_shape=(64, 64), min_block_nnz=4)
+    kw = dict(method="krylov_schur", block_size=4, num_blocks=8, tol=1e-5,
+              max_iters=100)
+
+    def run(store):
+        return solve(GraphOperator(tm, store=store), 8, store=store, **kw)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        solo = run(TieredStore(device=cuda))
+        store = TieredStore(device=cuda)
+        _zero_launches()
+        for sid in ("s0", "s1"):
+            assert run(store.namespace(sid)).io_stats == solo.io_stats
+        out = {}
+        ts = [threading.Thread(target=lambda sid=sid: out.__setitem__(
+            sid, run(store.namespace(sid)))) for sid in ("t0", "t1")]
+        [t.start() for t in ts]
+        [t.join(timeout=300) for t in ts]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert not any(t.is_alive() for t in ts) and set(out) == {"t0", "t1"}
+    assert all(v > 0 for v in _launches().values()), _launches()
+    stats = store.namespace_stats()
+    for sid in ("s0", "s1", "t0", "t1"):
+        assert stats[sid] == solo.io_stats, sid
+    for res in out.values():
+        np.testing.assert_allclose(res.eigenvalues, solo.eigenvalues,
+                                   rtol=1e-5)
+    parent = store.stats.as_dict()
+    for f in ("host_bytes_read", "host_bytes_written", "passes",
+              "pass_bytes_read", "cache_hits", "cache_misses"):
+        assert sum(d[f] for d in stats.values()) == parent[f], f
+    assert store.namespace("t0").device_bytes() > 0
+    store.drop_namespace("t0")
+    assert store.namespace("t0").device_bytes() == 0
+    assert store.namespace_stats()["t0"] == stats["t0"]
+
+
+@pytest.mark.gpu
+def test_spmm_ladder_on_card(cuda):
+    """chip_smoke.py phase 25 at the smoke size: every rung at k = 1 and
+    4 within 1e-5 of Σ|terms| of its plain version, the blocked rungs on
+    the SpMM kernel, the counts those of a CPU run."""
+    from repro_torch.benchmarks import bench_spmm
+    _zero_launches()
+    m = bench_spmm.collect(smoke=True, device=cuda)
+    assert spmm_tile.LAUNCHES > 0
+    bench_spmm.validate(m)
+    cpu = bench_spmm.collect(smoke=True, device="cpu")
+    for key in ("blocking", "hybrid", "balance"):
+        assert m[key] == cpu[key], key
+
+
+@pytest.mark.gpu
+def test_tasops_ladder_on_card(cuda):
+    """chip_smoke.py phase 26 at the smoke size: the I/O ladder's bytes
+    equal the CPU run's, gram and tsgemm launched."""
+    from repro_torch.benchmarks import bench_tasops
+    _zero_launches()
+    m = bench_tasops.collect(smoke=True, device=cuda)
+    assert gram.LAUNCHES > 0 and tsgemm.LAUNCHES > 0
+    bench_tasops.validate(m)
+    cpu = bench_tasops.collect(smoke=True, device="cpu")
+    for ms, r in m["m"].items():
+        for t in ("naive", "cache", "lazy_scale"):
+            assert r[t]["io_bytes"] == cpu["m"][ms][t]["io_bytes"], (ms, t)
+
+
+@pytest.mark.gpu
+def test_subspace_io_ladder_on_card(cuda):
+    """chip_smoke.py phase 27 at the smoke size: `validate` passes on the
+    card's metrics, the expansion and compress counters equal the CPU
+    run's, every kernel launched."""
+    from repro_torch.benchmarks import bench_subspace_io
+    _zero_launches()
+    m = bench_subspace_io.collect(smoke=True, device=cuda)
+    assert all(v > 0 for v in _launches().values()), _launches()
+    bench_subspace_io.validate(m)
+    for name in ("expansion", "compress"):
+        cpu = getattr(bench_subspace_io, f"_{name}_ladder")(4000, 4, 8,
+                                                             "cpu")
+        for tag in ("fused", "unfused"):
+            assert m[name][tag] == cpu[tag], (name, tag)
+
+
+@pytest.mark.gpu
+def test_safs_bench_on_card(cuda):
+    """chip_smoke.py phase 28 at the smoke size: the page and byte counts
+    of a CPU run, gram and tsgemm launched on the SAFS-backed subspace."""
+    from repro_torch.benchmarks import bench_safs
+    _zero_launches()
+    m = bench_safs.collect(smoke=True, device=cuda)
+    assert gram.LAUNCHES > 0 and tsgemm.LAUNCHES > 0
+    cpu = bench_safs.collect(smoke=True, device="cpu")
+    for ps in ("4096", "65536"):
+        assert m["read_throughput"][ps]["n_pages"] == \
+            cpu["read_throughput"][ps]["n_pages"]
+    for k in ("logical_bytes_written", "physical_bytes_written"):
+        assert m["safs_endurance"][k] == cpu["safs_endurance"][k], k
+    assert m["safs_stream"]["prefetch_on"]["logical_bytes_read"] == \
+        cpu["safs_stream"]["prefetch_on"]["logical_bytes_read"]

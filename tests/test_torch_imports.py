@@ -44,7 +44,12 @@ def test_import_loads_no_jax_and_no_reference_module():
               "repro_torch.ft", "repro_torch.ft.preemption",
               "repro_torch.obs.metrics", "repro_torch.obs.progress",
               "repro_torch.obs.report", "repro_torch.graphs.partition",
-              "repro_torch.examples.quickstart"):
+              "repro_torch.examples.quickstart",
+              "repro_torch.benchmarks.bench_spmm",
+              "repro_torch.benchmarks.bench_tasops",
+              "repro_torch.benchmarks.bench_subspace_io",
+              "repro_torch.benchmarks.bench_safs",
+              "repro_torch.benchmarks.run"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -111,6 +116,16 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         solve(NoDevice(), 2, block_size=2)
     assert TieredStore(device="cpu").device.type == "cpu"
+    # a MultiVector that builds its own store, and the ladders
+    from repro_torch.benchmarks import (bench_safs, bench_spmm,
+                                        bench_subspace_io, bench_tasops)
+    from repro_torch.core import MultiVector
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiVector(None, 8)
+    assert MultiVector(None, 8, device="cpu").store.device.type == "cpu"
+    for bench in (bench_spmm, bench_tasops, bench_subspace_io, bench_safs):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            bench.collect(smoke=True)
 
 
 def test_model_entry_points_without_device_raise_without_cuda(monkeypatch):
