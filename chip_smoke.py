@@ -181,8 +181,52 @@ read just after, and every kernel it names launched:
      the temporary directory's filesystem printed; gram and tsgemm
      launched.
 
+The eigensolver service (`repro_torch.serve`), after 28:
+ 29. serve: the eigensolver service over one SAFS store on the card.
+     `build_service(backend="safs", device="cuda")` under a new temporary
+     directory (page root and checkpoint root), a 512 MiB device budget
+     with a 64 MiB `min_share`, phase 9's 64 MiB page cache, two
+     sessions at a time; the launch counters zeroed just before the jobs
+     are submitted and read just after `drain()`. Jobs, as the serve
+     launcher's demo submits them (the background first, the rush job
+     once a running job has reported a step): bg-embed (eigsh over phase
+     3's graph, nev 8, block 4, 8 blocks, tol 1e-5, priority 1),
+     bg-lobpcg (`rmat_graph(2**18, 2**21, seed=1)`, nev 4, block 8, tol
+     1e-5, priority 0), bg-cluster (a 2^16-vertex planted partition of 4
+     classes, seed 0, tol 1e-6, priority 0) and rush (`rmat_graph(2**16,
+     2**19, seed=1)`, nev 4, priority 5). Gates: `validate_report` finds
+     nothing (every job DONE, per-namespace physical bytes summing to the
+     backend's exactly), the report is JSON-clean, at least one
+     preemption and every preempted job resumed with a `resumed_step`,
+     rush waiting less than bg-cluster, every job converged; after
+     `drain()` and the counters' read, each job's SpMM at every width the
+     phase launched it at, and gram and tsgemm at every shape, held
+     against their plain versions on the job's own image and
+     eigenvectors (KERNEL_TOL of Σ|terms|), and its true residuals ≤
+     1e-4·max(1, |θ|) through the kernel and through the plain SpMM,
+     their gap within KERNEL_TOL of ‖A|V|‖; eigenvalues at rtol 1e-5 of
+     a private serial `SolveSession` of the same spec on a CUDA RAM-tier
+     store
+     (bg-embed's runs after phase 25 over phase 3's image, which is the
+     job's graph, and the served job's image must have its blocks and
+     COO entries), purity > 0.9, SpMM, gram and tsgemm launched, no
+     session operator referenced after `drain()` and allocated device
+     memory back within the smallest R-MAT image of where it was. Then a
+     `PagedKVCache(session_id="kv")` on the same store at yi-9b's KV
+     geometry (4 KV heads, head_dim 128, pages of 128, bf16, 8 hot
+     pages): 4,096 tokens, 24 pages on the host tier, one 32-head attend
+     within 2^-8 of dense attention, its host reads in its namespace's
+     IOStats, `close()` leaving the solver namespaces as they were; and
+     `repro_torch.launch.serve.main(["--demo", "--device", "cuda", ...])`,
+     which must return 0 with a preemption. Printed: the per-job table
+     (wall, queue wait, preemptions, resumes, sha, the arbiter's
+     allotments), the wall and the problem builds in it, the preemption
+     latency from flag to `SolveSuspended`, physical bytes per
+     namespace and peak device memory.
+
 Then one JSON line of kernels (the four PR-15 rows, the nine width rows
-of 14, flash attention), the card line, and the final result line.
+of 14, flash attention; each row's `serve_launches` the launches at its
+width in phase 29), the card line, and the final result line.
 """
 from __future__ import annotations
 
@@ -240,6 +284,35 @@ SI_GAP, SI_CG_TOL, SI_CG_MAXITER = 0.05, 1e-7, 400
 # reference's nb = 16 and m = 64 to keep the new phases near two minutes:
 # both page the subspace through Python at 0.1-0.9 GB/s
 SUBIO_NB, SAFS_BENCH_M = 8, 32
+
+# the eigensolver service (phase 29): one SAFS store, a device budget and
+# a floor per session sized to the jobs (one (2^20, 4) float32 block is
+# 16 MiB; the reference's defaults, 32 MiB and 1 MiB, were made for n ≈
+# 1,200), phase 9's page cache, two sessions at a time
+SERVE_BUDGET, SERVE_MIN_SHARE, SERVE_CACHE = 512 << 20, 64 << 20, 64 << 20
+SERVE_MAX_CONCURRENT = 2
+# the background jobs, submitted first (bg-embed is phase 5's graph and
+# block, with the job's seed and `which`), then the rush job once a
+# running job has reported a step, as the serve launcher's demo does
+SERVE_JOBS = (
+    dict(job_id="bg-embed", kind="eigsh", n=2 ** N_LOG2,
+         nnz=2 ** NNZ_LOG2, seed=GRAPH_SEED, nev=NEV, block_size=BLOCK_SIZE,
+         options={"num_blocks": NUM_BLOCKS}, tol=TOL, max_iters=MAX_ITERS,
+         priority=1),
+    dict(job_id="bg-lobpcg", kind="lobpcg", n=2 ** 18, nnz=2 ** 21, seed=1,
+         nev=4, block_size=8, tol=1e-5, max_iters=300, priority=0),
+    dict(job_id="bg-cluster", kind="cluster", n=2 ** 16, k_classes=4,
+         seed=0, nev=4, block_size=4, tol=1e-6, max_iters=80, priority=0),
+)
+SERVE_RUSH = dict(job_id="rush", kind="eigsh", n=2 ** 16, nnz=2 ** 19,
+                  seed=1, nev=4, block_size=4, tol=1e-5, max_iters=60,
+                  priority=5)
+SERVE_PURITY = 0.9
+# the paged KV cache on the service's store, at yi-9b's KV geometry: 4,096
+# tokens fill 32 pages, of which the 24 oldest spill to the host tier
+KV_GEOM = dict(page_size=128, n_kv_heads=4, head_dim=128, hot_pages=8,
+               dtype="bfloat16")
+KV_TOKENS, KV_QUERY_HEADS = 4096, 32
 
 # flash attention at yi-9b's prefill shapes (B, H, Hkv, S, d), bf16
 FLASH_SERVE = (4, 32, 4, 2048, 128)
@@ -2074,6 +2147,508 @@ def safs_bench_phase(torch, dev) -> None:
     log(f"safs bench: phase 28 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------- the service
+
+def serve_embed_serial(torch, op) -> dict:
+    """bg-embed's private serial run, before phase 29 and over phase 3's
+    image: the job's graph is phase 3's (the same `rmat_graph` →
+    `normalized_adjacency` → `pack_tiles` as the session's
+    `build_problem`), so a `SolveSession` of the job's spec runs on a
+    fresh CUDA RAM-tier store over that operator instead of packing the
+    2^20 graph a second time. Returns its eigenvalues and the image's
+    shape, which the served job's build must match."""
+    from repro_torch.core import TieredStore
+    from repro_torch.serve import JobSpec, SolveSession
+    from repro_torch.serve import session as session_mod
+    spec = JobSpec.from_dict(copy.deepcopy(SERVE_JOBS[0]))
+
+    def phase3_problem(spec_, store):
+        op_ = copy.copy(op)
+        op_.store = store
+        return op_, None
+
+    real = session_mod.build_problem
+    session_mod.build_problem = phase3_problem
+    try:
+        s = SolveSession(spec, TieredStore(device=op.device), None)
+        t0 = time.perf_counter()
+        state = s.run()
+        wall = time.perf_counter() - t0
+    finally:
+        session_mod.build_problem = real
+    if state != "done":
+        fail(f"bg-embed's serial run ended {state}: {s.error}")
+    log(f"serve: bg-embed's serial run over phase 3's image {wall:.3f} s, "
+        f"restarts {s.result['n_restarts']}, eigenvalues "
+        f"{np.array2string(np.array(s.result['eigenvalues']), precision=8)}")
+    return {"eigenvalues": s.result["eigenvalues"],
+            "blocks": int(op._blocks.shape[0]),
+            "coo": int(op._coo[2].shape[0])}
+
+
+def serve_serial(torch, dev, d: dict) -> list:
+    """A job's private serial run: a fresh `SolveSession` of the same
+    spec on a private CUDA RAM-tier store."""
+    from repro_torch.core import TieredStore
+    from repro_torch.serve import JobSpec, SolveSession
+    s = SolveSession(JobSpec.from_dict(copy.deepcopy(d)),
+                     TieredStore(device=dev), None)
+    if s.run() != "done":
+        fail(f"{d['job_id']}'s serial run ended {s.state}: {s.error}")
+    return s.result["eigenvalues"]
+
+
+def paged_kv_phase(torch, dev, store, solver_ids) -> dict:
+    """A paged KV cache in namespace "kv" of the service's store, at
+    yi-9b's KV geometry: 4,096 appended tokens, 24 of 32 pages spilled to
+    the host tier, one 32-head attend against plain dense attention over
+    the same k/v, its host-tier reads in its namespace's IOStats, and
+    `close()` leaving every solver namespace as it was."""
+    from repro_torch.serve import PagedConfig, PagedKVCache
+    cfg = PagedConfig(**KV_GEOM)
+    names0 = {sid: store.namespace(sid).names() for sid in solver_ids}
+    stats0 = copy.deepcopy({sid: store.namespace_stats()[sid]
+                            for sid in solver_ids})
+    kv = PagedKVCache(cfg, store, session_id="kv")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    shape = (KV_TOKENS, cfg.n_kv_heads, cfg.head_dim)
+    ks = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vs = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((KV_QUERY_HEADS, cfg.head_dim), generator=gen,
+                    device=dev)
+    kv.start(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(KV_TOKENS):
+        kv.append(0, ks[t], vs[t])
+    torch.cuda.synchronize()
+    t_append = time.perf_counter() - t0
+    table = kv._tables[0]
+    spilled = sum(kv.store.tier_of(n) == "host" for n in table)
+    page_bytes = 2 * cfg.page_size * cfg.n_kv_heads * cfg.head_dim * 2
+    before = dict(store.namespace_stats()["kv"])
+    t0 = time.perf_counter()
+    out = kv.attend(0, q)
+    torch.cuda.synchronize()
+    t_attend = time.perf_counter() - t0
+    after = dict(store.namespace_stats()["kv"])
+    g = KV_QUERY_HEADS // cfg.n_kv_heads
+    qg = q.reshape(cfg.n_kv_heads, g, cfg.head_dim)
+    sc = torch.einsum("kgd,skd->kgs", qg, ks.float()) / cfg.head_dim ** 0.5
+    dense = torch.einsum("kgs,skd->kgd", torch.softmax(sc, dim=-1),
+                         vs.float()).reshape(KV_QUERY_HEADS, cfg.head_dim)
+    err = float((out - dense).abs().max() / dense.abs().max())
+    reads = after["host_bytes_read"] - before["host_bytes_read"]
+    kv.close()
+    names1 = {sid: store.namespace(sid).names() for sid in solver_ids}
+    stats1 = {sid: store.namespace_stats()[sid] for sid in solver_ids}
+    log(f"serve kv: {KV_TOKENS} tokens into {len(table)} pages of "
+        f"{page_bytes} bytes ({spilled} on the host tier) in {t_append:.2f}"
+        f" s | attend of {KV_QUERY_HEADS} heads {t_attend * 1e3:.2f} ms, "
+        f"max |Δ| against dense attention {err:.3e} of its largest "
+        f"magnitude (limit 2^-8) | host reads in its namespace "
+        f"{reads} bytes, {after['host_reads'] - before['host_reads']} reads "
+        f"| its IOStats {json.dumps(after)}")
+    if len(table) != KV_TOKENS // cfg.page_size or \
+            spilled != len(table) - cfg.hot_pages:
+        fail(f"serve kv: {spilled} of {len(table)} pages spilled")
+    if not err <= FLASH_TOL:
+        fail(f"serve kv: attend off dense attention by {err:.3e}")
+    if reads != spilled * page_bytes:
+        fail(f"serve kv: {reads} host bytes read in its namespace, not "
+             f"{spilled * page_bytes}")
+    if names1 != names0 or stats1 != stats0:
+        fail("serve kv: close() changed a solver namespace")
+    return {"append_s": t_append, "attend_ms": t_attend * 1e3, "err": err,
+            "host_bytes_read": reads}
+
+
+def serve_cli_phase(tmp: str) -> None:
+    """`repro_torch.launch.serve --demo --device cuda` in this process,
+    its roots under the phase's temporary directory: it must return 0 and
+    report at least one preemption."""
+    from repro_torch.launch import serve as serve_cli
+    out = os.path.join(tmp, "demo_report.json")
+    t0 = time.perf_counter()
+    rc = serve_cli.main(["--demo", "--device", "cuda", "--backend", "safs",
+                         "--root", os.path.join(tmp, "demo_pages"),
+                         "--ckpt-root", os.path.join(tmp, "demo_ckpt"),
+                         "--out", out])
+    wall = time.perf_counter() - t0
+    with open(out) as fh:
+        rep = json.load(fh)
+    preempts = sum(j["preemptions"] for j in rep["jobs"])
+    log(f"serve cli: --demo on the card returned {rc} in {wall:.2f} s | "
+        f"{len(rep['jobs'])} jobs, {preempts} preemptions, valid "
+        f"{rep['valid']}")
+    if rc != 0 or not rep["valid"] or preempts < 1:
+        fail(f"serve cli: rc {rc}, {preempts} preemptions, errors "
+             f"{rep['errors']}")
+
+
+def row_width(name: str) -> tuple[str, str]:
+    """A solver row of the kernels line → its kernel and the key of its
+    width in `launches_by_width`: spmm_blocksparse_k8 → (spmm_blocksparse,
+    k8), gram_b24 → (gram, 24x24); a row without a suffix runs at
+    BLOCK_SIZE."""
+    m = re.fullmatch(r"(spmm_blocksparse|gram|tsgemm)(?:_[kb](\d+))?", name)
+    kernel, w = m.group(1), int(m.group(2) or BLOCK_SIZE)
+    return kernel, f"k{w}" if kernel == "spmm_blocksparse" else f"{w}x{w}"
+
+
+def serve_launches(name: str, by_width: dict, other: dict) -> int:
+    """A kernels-line row's launches at its width in phase 29."""
+    if name in other:
+        return other[name]
+    kernel, key = row_width(name)
+    return by_width[kernel].get(key, 0)
+
+
+def spmm_f64(torch, op, x, chunk: int = 1 << 16):
+    """A·X in float64 over a resident operator's image (its dense blocks,
+    `chunk` at a time, and its COO side path), with Σ|terms| per element
+    and each row's count of nonzero terms: the exact product, and what a
+    float32 SpMM's rounding is bounded by."""
+    nb, bm, _ = op._blocks.shape
+    nbr, k, dev = op._row_ptr.shape[0] - 1, x.shape[1], op.device
+    x64 = x.double()
+    xb = x64.reshape(-1, bm, k)
+    rows = torch.repeat_interleave(torch.arange(nbr, device=dev),
+                                   (op._row_ptr[1:] - op._row_ptr[:-1]).long())
+    y = torch.zeros((nbr, bm, k), dtype=torch.float64, device=dev)
+    terms = torch.zeros_like(y)
+    count = torch.zeros((nbr, bm), dtype=torch.int64, device=dev)
+    for c0 in range(0, nb, chunk):
+        blk = op._blocks[c0:c0 + chunk].double()
+        xc = xb[op._block_cols[c0:c0 + chunk].long()]
+        r = rows[c0:c0 + chunk]
+        y.index_add_(0, r, torch.bmm(blk, xc))
+        terms.index_add_(0, r, torch.bmm(blk.abs(), xc.abs()))
+        count.index_add_(0, r, (blk != 0).sum(-1))
+        del blk, xc
+    y, terms, count = y.reshape(-1, k), terms.reshape(-1, k), count.reshape(-1)
+    cr, cc, cv = op._coo
+    cr, cc, cv = cr.long(), cc.long(), cv.double()
+    if cv.numel():
+        y.index_add_(0, cr, cv[:, None] * x64[cc])
+        terms.index_add_(0, cr, cv.abs()[:, None] * x64[cc].abs())
+        count += torch.bincount(cr, minlength=count.numel())
+    return y, terms, count
+
+
+def serve_kernel_check(torch, op, res, by_width: dict):
+    """One served job's kernels against exact float64 products, after
+    drain and after the launch counters were read (these launches do not
+    count), on the job's own image and eigenvectors V (n, nev) at every
+    width the phase launched each kernel at (V's columns repeated to the
+    width; tsgemm's small factor is V's own Gram): the SpMM and its plain
+    version each within max(KERNEL_TOL, γ_{m+1}) of Σ|terms| in a row of
+    m nonzero terms (γ_j = j·u / (1 − j·u), u = 2^-24: the bound on any
+    float32 sum of those terms, whatever its order; a hub row of an
+    R-MAT image sums tens of thousands of same-signed terms of an
+    eigenvector), gram and tsgemm within KERNEL_TOL of Σ|terms| (their
+    plain versions' errors printed beside, cuBLAS float32 strays more at
+    n = 2^20, §7 of PERF.md). Then the true residuals through the kernel
+    and through the plain SpMM, both within RESID_TOL, their gap within
+    KERNEL_TOL of ‖A|V|‖ / max(1, |θ|) per pair. Returns the residuals,
+    the kernels' and plain versions' errors with the SpMM's largest share
+    of its bound, and the failures."""
+    from repro_torch.core import true_residuals
+    from repro_torch.kernels import ops
+    kern = copy.copy(op)     # off the store: no IOStats after the report
+    kern.store, kern.impl = None, "auto"
+    plain = copy.copy(kern)
+    plain.impl = "ref"
+    v = torch.as_tensor(res.eigenvectors, dtype=torch.float32,
+                        device=op.device)
+    nev = v.shape[1]
+    u = 2.0 ** -24
+
+    def cols(w):
+        return v[:, [i % nev for i in range(w)]]
+
+    errs, plain_errs, of_bound, failures = {}, {}, {}, []
+    for key in by_width["spmm_blocksparse"]:
+        x = cols(int(key[1:]))
+        exact, terms, count = spmm_f64(torch, op, x)
+        mu = (count + 1).double()[:, None] * u
+        bound = torch.clamp(mu / (1 - mu), min=KERNEL_TOL) * terms
+        for name, y, out in (("kernel", kern.matmat(x), errs),
+                             ("plain", plain.matmat(x), plain_errs)):
+            over = ((y.double() - exact).abs() / bound).nan_to_num(
+                nan=0.0, posinf=float("inf"))      # 0 / 0 in empty rows
+            out[f"spmm {key}"] = rel_err(y, exact, terms)
+            of_bound[f"{name} {key}"] = float(over.max())
+            if bool((over > 1).any()):
+                failures.append(
+                    f"spmm {key}: the {name} version off the float64 "
+                    f"product by {float(over.max()):.3g} times its "
+                    f"float32 bound")
+        del exact, terms, count, bound
+    for key in by_width["gram"]:
+        a, b = (cols(int(w)) for w in key.split("x"))
+        exact = a.double().T @ b.double()
+        terms = a.abs().double().T @ b.abs().double()
+        errs[f"gram {key}"] = rel_err(ops.gram(a, b), exact, terms)
+        plain_errs[f"gram {key}"] = rel_err(ops.gram(a, b, impl="ref"),
+                                            exact, terms)
+    for key in by_width["tsgemm"]:
+        m, b = map(int, key.split("x"))
+        a, c0 = cols(m), cols(b)
+        small = ops.gram(a, c0, impl="ref")
+        exact = c0.double() - a.double() @ small.double()
+        terms = a.abs().double() @ small.abs().double() + c0.abs().double()
+        errs[f"tsgemm {key}"] = rel_err(
+            ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=c0), exact, terms)
+        plain_errs[f"tsgemm {key}"] = rel_err(
+            ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=c0, impl="ref"),
+            exact, terms)
+    bad = {k: e for k, e in errs.items()
+           if not k.startswith("spmm") and not e <= KERNEL_TOL}
+    if bad:
+        failures.append(f"kernels off the float64 product (tol "
+                        f"{KERNEL_TOL:g} of Σ|terms|): {bad}")
+    theta = np.asarray(res.eigenvalues)
+    r = true_residuals(kern, v, theta)
+    r_plain = true_residuals(plain, v, theta)
+    gap_tol = KERNEL_TOL * (torch.linalg.norm(plain.matmat(v.abs()), dim=0)
+                            .cpu().numpy() / np.maximum(1.0, np.abs(theta)))
+    if not (np.all(r <= RESID_TOL) and np.all(r_plain <= RESID_TOL)):
+        failures.append(f"true residuals {r}, through the plain SpMM "
+                        f"{r_plain}")
+    if not np.all(np.abs(r - r_plain) <= gap_tol):
+        failures.append(f"residuals through the kernel {r} and the plain "
+                        f"SpMM {r_plain} differ by more than {gap_tol}")
+    return (r, r_plain), (errs, plain_errs, of_bound), failures
+
+
+def serve_phase(torch, dev, embed_serial: dict) -> tuple[dict, dict]:
+    """Phase 29: the eigensolver service over one SAFS store on the card.
+    The launch counters are zeroed just before the jobs are submitted and
+    read just after `drain()`; returns them (by width, and the bf16 SpMM
+    and flash counts) for the kernels line's `serve_launches`. Each job's
+    operator and result are held until then, and its kernels checked
+    against their plain versions after (`serve_kernel_check`)."""
+    import threading
+    import weakref
+    from repro_torch.kernels import flashattn, spmm_tile
+    from repro_torch.serve import PreemptFlag, build_service, validate_report
+    from repro_torch.serve import session as session_mod
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="serve_")
+    lock = threading.Lock()
+    builds, ops, solved, latency, allotted = {}, [], {}, [], {}
+    real_build, real_solve = session_mod.build_problem, session_mod.solve
+
+    def timed_build(spec, store):
+        t0 = time.perf_counter()
+        op, labels = real_build(spec, store)
+        with lock:
+            builds.setdefault(spec.job_id, []).append({
+                "s": time.perf_counter() - t0, "image": op._image_bytes,
+                "blocks": int(op._blocks.shape[0]),
+                "coo": int(op._coo[2].shape[0])})
+            ops.append(weakref.ref(op))
+        return op, labels
+
+    def checked_solve(op, nev, **kw):
+        res = real_solve(op, nev, **kw)     # SolveSuspended passes through
+        with lock:                          # checked after drain()
+            solved[op.store.session_id] = (op, res)
+        return res
+
+    class TimedFlag(PreemptFlag):
+        """The scheduler's flag, with the time it was raised."""
+        raised_at = None
+
+        def request(self):
+            self.raised_at = time.perf_counter()
+            super().request()
+
+    def timed(session):
+        session.guard = TimedFlag()
+        run = session.run
+
+        def run_and_time():
+            state = run()
+            if state == "suspended" and session.guard.raised_at is not None:
+                latency.append((session.spec.job_id, time.perf_counter()
+                                - session.guard.raised_at))
+                session.guard.raised_at = None
+            return state
+
+        session.run = run_and_time
+        return session
+
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    svc = build_service(backend="safs", root=os.path.join(tmp, "pages"),
+                        device_budget=SERVE_BUDGET, min_share=SERVE_MIN_SHARE,
+                        cache_bytes=SERVE_CACHE,
+                        ckpt_root=os.path.join(tmp, "ckpt"),
+                        max_concurrent=SERVE_MAX_CONCURRENT, device=dev)
+    admit = svc.arbiter.admit
+
+    def recording_admit(sid, priority=0):
+        share = admit(sid, priority)
+        allotted.setdefault(sid, []).append(share)
+        return share
+
+    svc.arbiter.admit = recording_admit
+    log(f"serve: service on {dev} | SAFS page root {tmp} | device budget "
+        f"{SERVE_BUDGET >> 20} MiB, min_share {SERVE_MIN_SHARE >> 20} MiB, "
+        f"page cache {SERVE_CACHE >> 20} MiB, {SERVE_MAX_CONCURRENT} "
+        f"sessions at a time")
+    session_mod.build_problem, session_mod.solve = timed_build, checked_solve
+    try:
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for d in SERVE_JOBS:
+            timed(svc.submit(copy.deepcopy(d)))
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            svc.scheduler.tick()
+            running = svc.scheduler.stats_dict()["running"]
+            if any(p["steps"] >= 1 for p in running.values()):
+                break
+            time.sleep(0.02)
+        else:
+            fail("serve: no background job reported a step in 600 s")
+        t_rush = time.perf_counter() - t0
+        timed(svc.submit(copy.deepcopy(SERVE_RUSH)))
+        svc.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_width, totals = launches_by_width(), kernel_launches()
+        other = {"spmm_blocksparse_bf16": spmm_tile.LAUNCHES_BF16,
+                 "flash_attention": flashattn.LAUNCHES}
+    finally:
+        session_mod.build_problem, session_mod.solve = real_build, real_solve
+    peak = torch.cuda.max_memory_allocated()
+    t_check = time.perf_counter()
+    resid, kernel_err, failures = {}, {}, []
+    for jid in sorted(solved):
+        resid[jid], kernel_err[jid], bad = serve_kernel_check(
+            torch, *solved[jid], by_width)
+        failures += [f"{jid}: {b}" for b in bad]
+        log(f"serve: {jid}'s kernels against the float64 product, of "
+            f"Σ|terms|: {json.dumps(kernel_err[jid][0])} | their plain "
+            f"versions: {json.dumps(kernel_err[jid][1])} | the SpMM's "
+            f"largest share of its per-row bound: "
+            f"{json.dumps(kernel_err[jid][2])}")
+    torch.cuda.synchronize()
+    t_check = time.perf_counter() - t_check
+    solved.clear()
+    gc.collect()
+    live = [r() for r in ops if r() is not None]
+    mem1 = torch.cuda.memory_allocated()
+    ids = [d["job_id"] for d in SERVE_JOBS] + [SERVE_RUSH["job_id"]]
+    kv = paged_kv_phase(torch, dev, svc.store, ids)
+    rep = svc.report()
+    errors = validate_report(rep)
+    svc.close()
+    clean = json.loads(json.dumps(rep)) == rep
+
+    jobs = {j["job_id"]: j for j in rep["jobs"]}
+    specs = {d["job_id"]: d for d in SERVE_JOBS + (SERVE_RUSH,)}
+    t_serial = time.perf_counter()
+    serial = {"bg-embed": embed_serial["eigenvalues"]}
+    for jid in ids[1:]:
+        serial[jid] = serve_serial(torch, dev, specs[jid])
+    t_serial = time.perf_counter() - t_serial
+    t_build = sum(b["s"] for v in builds.values() for b in v)
+    lat = ", ".join(f"{j} {dt * 1e3:.1f} ms" for j, dt in latency)
+    log(f"serve: {len(ids)} jobs drained in {wall:.2f} s (rush submitted at "
+        f"{t_rush:.2f} s) | problem builds {t_build:.2f} s summed over the "
+        f"worker threads | preemption latency, flag to SolveSuspended: "
+        f"{lat or 'none'} | peak device memory {peak / 1e9:.2f} GB; "
+        f"allocated before {mem0 / 1e9:.3f} GB, after drain "
+        f"{mem1 / 1e9:.3f} GB")
+    log("serve: job | kind | n | state | wall s | queue wait s | preempts | "
+        "resumes | resumed step | restarts | builds s | allotted MiB | "
+        "true resid max, kernel / plain SpMM | kernels' rel err to float64 "
+        "(plain's) | "
+        "rel err to serial | sha")
+    for jid in ids:
+        j, d = jobs[jid], specs[jid]
+        res = j["result"] or {}
+        got = np.array(res.get("eigenvalues") or [np.nan])
+        want = np.array(serial[jid])
+        rel = (float(np.max(np.abs(got - want) / np.abs(want)))
+               if got.shape == want.shape else float("inf"))
+        r = resid.get(jid)
+        built = "+".join(f"{b['s']:.1f}" for b in builds.get(jid, []))
+        shares = "/".join(str(a >> 20) for a in allotted.get(jid, []))
+        worst = "-" if r is None else \
+            f"{r[0].max():.2e} / {r[1].max():.2e} | " \
+            f"{max(kernel_err[jid][0].values()):.2e} " \
+            f"({max(kernel_err[jid][1].values()):.2e})"
+        log(f"serve: {jid} | {j['kind']} | {d['n']} | {j['state']} | "
+            f"{j['wall_s']:.2f} | {j['queue_wait_s']:.3f} | "
+            f"{j['preemptions']} | {j['resumes']} | "
+            f"{res.get('resumed_step')} | {res.get('n_restarts')} | "
+            f"{built} | {shares} | {worst} | {rel:.2e} | "
+            f"{(j['spectrum'] or {}).get('sha')}")
+        if j["state"] != "done" or not res.get("converged"):
+            failures.append(f"{jid} ended {j['state']}, converged "
+                            f"{res.get('converged')}: {j['error']}")
+        if jid not in resid:
+            failures.append(f"{jid}: no solve returned")
+        if not rel <= 1e-5:
+            failures.append(f"{jid}: eigenvalues {got} against the serial "
+                            f"run's {want}")
+        if j["preemptions"] and (j["resumes"] < 1
+                                 or res.get("resumed_step") is None):
+            failures.append(f"{jid} preempted but not resumed")
+    embed = builds.get("bg-embed", [{}])[0]
+    physical = {k: [v["host_bytes_read"], v["host_bytes_written"]]
+                for k, v in rep["backend"]["namespaces"].items()}
+    log(f"serve: physical bytes [read, written] per namespace "
+        f"{json.dumps(physical)} | backend totals read "
+        f"{rep['backend']['io']['host_bytes_read']} written "
+        f"{rep['backend']['io']['host_bytes_written']} | purity "
+        f"{jobs['bg-cluster']['purity']} | serial runs {t_serial:.1f} s | "
+        f"kernels and plain versions held against float64 after drain, at "
+        f"every width below, on each job's image and eigenvectors "
+        f"{t_check:.1f} s | launches {json.dumps(by_width)}")
+    if errors:
+        failures.append(f"validate_report: {errors}")
+    if not clean:
+        failures.append("the report is not JSON-clean")
+    if sum(j["preemptions"] for j in jobs.values()) < 1:
+        failures.append("no job was preempted")
+    if not jobs["rush"]["queue_wait_s"] < jobs["bg-cluster"]["queue_wait_s"]:
+        failures.append("the rush job waited as long as bg-cluster")
+    if not (jobs["bg-cluster"]["purity"] or 0) > SERVE_PURITY:
+        failures.append(f"purity {jobs['bg-cluster']['purity']}")
+    if (embed.get("blocks"), embed.get("coo")) != \
+            (embed_serial["blocks"], embed_serial["coo"]):
+        failures.append(f"bg-embed's image {embed} is not phase 3's")
+    for name in ("spmm_blocksparse", "gram", "tsgemm"):
+        if totals[name] <= 0:
+            failures.append(f"kernel {name} was not launched by a session")
+    if live:
+        failures.append(f"{len(live)} session operators still referenced "
+                        f"after drain()")
+    limit = min(b["image"] for jid in ("bg-embed", "bg-lobpcg", "rush")
+                for b in builds.get(jid, [{"image": 0}]))
+    if not mem1 - mem0 <= limit:
+        failures.append(f"device memory {mem1 - mem0} bytes above where it "
+                        f"was before the phase (limit: the smallest R-MAT "
+                        f"image, {limit})")
+    if failures:
+        fail("serve: " + "; ".join(failures))
+    serve_cli_phase(tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"serve: phase 29 took {time.perf_counter() - t_phase:.1f} s "
+        f"(device memory limit after drain {limit} bytes; kv "
+        f"{json.dumps(kv)})")
+    return by_width, other
+
+
 def flash_phase(torch, timer, dev):
     """The flash kernel at yi-9b's prefill shapes and one ragged,
     non-causal shape, against its plain version in float32."""
@@ -2397,6 +2972,7 @@ def main() -> None:
     traced_phase(torch, op)                          # phase 22
     namespace_phase(torch, op, res32)                # phase 24
     spmm_ladder_phase(torch, op, graph, rows[0])     # phase 25
+    embed_serial = serve_embed_serial(torch, op)     # for phase 29
     del op, tm, graph                    # free the 12.86 GB image
     gc.collect()
     torch.cuda.empty_cache()
@@ -2414,14 +2990,15 @@ def main() -> None:
     tasops_phase(torch, dev)                         # phase 26
     subspace_io_phase(torch, dev)                    # phase 27
     safs_bench_phase(torch, dev)                     # phase 28
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_counts = serve_phase(torch, dev, embed_serial)   # phase 29
     # each width row's launches: the solve that runs the kernel at it
     for r in family:
-        kernel, width = r["name"].rsplit("_", 1)
+        kernel, key = row_width(r["name"])
         phase = {"k1": "chebyshev", "k2": "svd", "k8": "lobpcg",
-                 "b2": "svd", "b8": "lobpcg", "b16": "lobpcg",
-                 "b24": "lobpcg"}[width]
-        key = width if kernel == "spmm_blocksparse" else \
-            f"{width[1:]}x{width[1:]}"
+                 "2x2": "svd", "8x8": "lobpcg", "16x16": "lobpcg",
+                 "24x24": "lobpcg"}[key]
         r["launches"] = widths[phase][kernel].get(key, 0)
         if r["launches"] <= 0:
             fail(f"{r['name']} was not launched by the {phase} solve")
@@ -2431,10 +3008,12 @@ def main() -> None:
     rows.append(flash_phase(torch, timer, dev))
     launches = serve(torch, dev, rows, card_line)
     rows[-1]["launches"] = launches["flash_attention"]
+    for r in rows:      # the launches at each row's width in phase 29
+        r["serve_launches"] = serve_launches(r["name"], *serve_counts)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "serve_launches")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build "
         f"{build_s:.1f} s)")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

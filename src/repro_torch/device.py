@@ -26,3 +26,15 @@ def synchronize(device) -> None:
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def load_cuda_linalg(device) -> None:
+    """Load torch's CUDA linear algebra (its cuSOLVER kernels, which torch
+    loads at the first CUDA `torch.linalg` call) on the calling thread; a
+    no-op off CUDA. Two threads that make their first such call at once
+    both enter the loader, and one fails with "lazy wrapper should be
+    called at most once": a server that solves on several threads calls
+    this before it starts them."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.linalg.cholesky_ex(torch.ones((1, 1), device=dev))

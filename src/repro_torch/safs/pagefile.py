@@ -242,6 +242,7 @@ class PageFile:
         self.integrity = integrity
         self.on_corrupt = on_corrupt
         self._mmap = None
+        self._close_lock = threading.Lock()   # sync() against close()
         meta = _meta_path(path)
         if os.path.exists(meta):
             with open(meta) as f:
@@ -620,9 +621,15 @@ class PageFile:
         return
 
     def sync(self) -> None:
-        if self._mmap is not None:
-            self._mmap.flush()
-        os.fsync(self._fd)
+        # a barrier over every file of a shared store (backend.flush) can
+        # reach a file that another session's delete has just closed;
+        # such a file has nothing left to make durable
+        with self._close_lock:
+            if self._fd is None:
+                return
+            if self._mmap is not None:
+                self._mmap.flush()
+            os.fsync(self._fd)
 
     # --------------------------------------------------------- array view
     def page_indices(self) -> Iterable[int]:
@@ -658,12 +665,13 @@ class PageFile:
         return pages
 
     def close(self) -> None:
-        if self._mmap is not None:
-            self._mmap.close()
-            self._mmap = None
-        if self._fd is not None:
-            os.close(self._fd)
-            self._fd = None
+        with self._close_lock:
+            if self._mmap is not None:
+                self._mmap.close()
+                self._mmap = None
+            if self._fd is not None:
+                os.close(self._fd)
+                self._fd = None
 
     def delete(self) -> None:
         self.close()

@@ -1064,3 +1064,61 @@ def test_safs_bench_on_card(cuda):
         assert m["safs_endurance"][k] == cpu["safs_endurance"][k], k
     assert m["safs_stream"]["prefetch_on"]["logical_bytes_read"] == \
         cpu["safs_stream"]["prefetch_on"]["logical_bytes_read"]
+
+
+_SERVE_ON_CARD = """
+import json, sys
+import numpy as np
+from repro_torch.kernels import gram, spmm_tile, tsgemm
+from repro_torch.serve import JobSpec, build_service, validate_report
+jobs = [dict(job_id="embed", kind="eigsh", n=2000, nnz=20000, nev=4,
+             tol=1e-6, max_iters=80),
+        dict(job_id="pcg", kind="lobpcg", n=1800, nnz=18000, nev=3,
+             tol=1e-4, max_iters=80, priority=1)]
+out = {}
+for dev in ("cuda", "cpu"):
+    svc = build_service(backend="ram", device_budget=32 << 20,
+                        max_concurrent=2, device=dev)
+    for mod in (spmm_tile, gram, tsgemm):
+        mod.LAUNCHES = 0
+    for d in jobs:
+        svc.submit(JobSpec.from_dict(dict(d)))
+    svc.drain()
+    rep = svc.report()
+    svc.close()
+    out[dev] = {"launches": [spmm_tile.LAUNCHES, gram.LAUNCHES,
+                             tsgemm.LAUNCHES],
+                "errors": validate_report(rep),
+                "eigenvalues": {j["job_id"]: (j["result"] or {}).get(
+                    "eigenvalues") for j in rep["jobs"]},
+                "json": json.loads(json.dumps(rep)) == rep}
+print("RESULT " + json.dumps(out))
+"""
+
+
+@pytest.mark.gpu
+def test_service_sessions_launch_the_kernels_on_card(cuda):
+    """Two jobs through `build_service(device="cuda")` on the RAM tier, in
+    a fresh process (so the two sessions make the process's first CUDA
+    linalg calls, from two threads): a valid, JSON-clean report,
+    eigenvalues at rtol 1e-5 of the same service on the CPU's plain
+    versions, and SpMM, gram and tsgemm launched by the sessions."""
+    import json
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    run = subprocess.run([sys.executable, "-c", _SERVE_ON_CARD],
+                         capture_output=True, text=True, env=env,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr
+    line = [ln for ln in run.stdout.splitlines() if ln.startswith("RESULT ")]
+    out = json.loads(line[-1][len("RESULT "):])
+    for dev in ("cuda", "cpu"):
+        assert out[dev]["errors"] == [], out[dev]["errors"]
+        assert out[dev]["json"]
+    assert all(n > 0 for n in out["cuda"]["launches"]), out["cuda"]
+    assert out["cpu"]["launches"] == [0, 0, 0]
+    for jid, want in out["cpu"]["eigenvalues"].items():
+        np.testing.assert_allclose(out["cuda"]["eigenvalues"][jid], want,
+                                   rtol=1e-5)

@@ -49,7 +49,11 @@ def test_import_loads_no_jax_and_no_reference_module():
               "repro_torch.benchmarks.bench_tasops",
               "repro_torch.benchmarks.bench_subspace_io",
               "repro_torch.benchmarks.bench_safs",
-              "repro_torch.benchmarks.run"):
+              "repro_torch.benchmarks.run", "repro_torch.serve",
+              "repro_torch.serve.arbiter", "repro_torch.serve.session",
+              "repro_torch.serve.scheduler", "repro_torch.serve.api",
+              "repro_torch.serve.paged_kv", "repro_torch.launch",
+              "repro_torch.launch.serve"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -79,6 +83,10 @@ def test_sources_import_no_jax_and_no_reference_module():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PORT):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for mod in ("serve/arbiter.py", "serve/session.py", "serve/scheduler.py",
+                "serve/api.py", "serve/paged_kv.py", "serve/__init__.py",
+                "launch/serve.py", "launch/__init__.py"):
+        assert os.path.join(PORT, mod) in paths, mod
     offenders = []
     for path in paths:
         with open(path) as fh:
@@ -126,6 +134,31 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
     for bench in (bench_spmm, bench_tasops, bench_subspace_io, bench_safs):
         with pytest.raises(RuntimeError, match="CUDA"):
             bench.collect(smoke=True)
+
+
+def test_serve_entry_points_without_device_raise_without_cuda(monkeypatch,
+                                                             tmp_path):
+    """The service, the paged KV cache and the serve CLI run on the card
+    unless asked for the CPU."""
+    from repro_torch.launch import serve as cli
+    from repro_torch.serve import PagedConfig, PagedKVCache, build_service
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_service()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_service(backend="safs", root=os.devnull)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache(PagedConfig())
+    ck = ["--ckpt-root", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--demo"] + ck)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--demo", "--device", "cuda"] + ck)
+    svc = build_service(device="cpu")
+    assert svc.store.device.type == "cpu"
+    svc.close()
+    assert PagedKVCache(PagedConfig(), device="cpu").store.device.type == \
+        "cpu"
 
 
 def test_model_entry_points_without_device_raise_without_cuda(monkeypatch):
