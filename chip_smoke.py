@@ -224,9 +224,36 @@ The eigensolver service (`repro_torch.serve`), after 28:
      latency from flag to `SolveSuspended`, physical bytes per
      namespace and peak device memory.
 
+The sharded layer (`repro_torch.dist`), after 25 on phase 3's graph:
+ 30. 30a, one rank over NCCL: a one-rank world, `DistOperator` on a
+     (1, 1, 1) mesh over phase 3's graph (its panel packed as the
+     solver's image), phase 5's solve over it through eigsh's fused
+     expansion with the launch counters zeroed just before and read just
+     after: converged, eigenvalues within rtol 1e-5 of phase 5's, true
+     residuals ≤ 1e-4, fused steps taken, SpMM, gram and tsgemm launched,
+     every collective's bytes equal to the design's count; its wall
+     beside phase 5's and a profiled breakdown as in 7; then, in that
+     world, the one-rank run of
+     `rmat_graph(2**18, 2**21, seed=1, symmetric=True)` normalized.
+     30b, eight ranks sharing the card over gloo (a (2, 2, 2) mesh,
+     `dist.spawn` of `examples.dist_eigen_e2e.run_ranks`, payloads staged
+     through pinned host memory): the same solve of that graph from the
+     same natural-space start block, eigenvalues within rtol 1e-5 of the
+     one-rank run's, the pod-compressed run over 3 restarts (last
+     deviation < 2e-2 and not above twice the smallest after the first)
+     and the compressed stream (within 5e-3); every rank's kernel
+     launches (SpMM, gram and tsgemm each > 0), collective bytes equal to
+     the design's count, host-staged bytes, peak device memory and the
+     share of its entries left to the COO remainder; after its solve each
+     rank holds its SpMM (panel image, padded columns), gram and tsgemm
+     (at (n_pad/8, 4)) and their plain versions against float64 products
+     within serve_kernel_check's limits; a rank that fails or hangs fails
+     the phase at the world's timeout.
+
 Then one JSON line of kernels (the four PR-15 rows, the nine width rows
 of 14, flash attention; each row's `serve_launches` the launches at its
-width in phase 29), the card line, and the final result line.
+width in phase 29, its `dist_launches` those in phase 30a), the card
+line, and the final result line.
 """
 from __future__ import annotations
 
@@ -313,6 +340,16 @@ SERVE_PURITY = 0.9
 KV_GEOM = dict(page_size=128, n_kv_heads=4, head_dim=128, hot_pages=8,
                dtype="bfloat16")
 KV_TOKENS, KV_QUERY_HEADS = 4096, 32
+
+# the sharded layer (phase 30): 30b's world of DIST_SHAPE ranks sharing
+# the card over gloo, on rmat_graph(2**DIST_LOG2, 2**DIST_NNZ_LOG2, seed=1,
+# symmetric=True) normalized, every solve of it from the natural-space
+# block of DIST_X0_SEED; the reference's pod_compressed and compressed
+# gates (tests/test_distributed.py:127-137) over DIST_POD_RESTARTS
+# restarts; every world bounded by DIST_TIMEOUT seconds
+DIST_SHAPE, DIST_LOG2, DIST_NNZ_LOG2, DIST_X0_SEED = (2, 2, 2), 18, 21, 0
+DIST_POD_RESTARTS, DIST_POD_TOL, DIST_COMP_TOL = 3, 2e-2, 5e-3
+DIST_TIMEOUT = 600
 
 # flash attention at yi-9b's prefill shapes (B, H, Hkv, S, d), bf16
 FLASH_SERVE = (4, 32, 4, 2048, 128)
@@ -2304,36 +2341,11 @@ def serve_launches(name: str, by_width: dict, other: dict) -> int:
     return by_width[kernel].get(key, 0)
 
 
-def spmm_f64(torch, op, x, chunk: int = 1 << 16):
-    """A·X in float64 over a resident operator's image (its dense blocks,
-    `chunk` at a time, and its COO side path), with Σ|terms| per element
-    and each row's count of nonzero terms: the exact product, and what a
-    float32 SpMM's rounding is bounded by."""
-    nb, bm, _ = op._blocks.shape
-    nbr, k, dev = op._row_ptr.shape[0] - 1, x.shape[1], op.device
-    x64 = x.double()
-    xb = x64.reshape(-1, bm, k)
-    rows = torch.repeat_interleave(torch.arange(nbr, device=dev),
-                                   (op._row_ptr[1:] - op._row_ptr[:-1]).long())
-    y = torch.zeros((nbr, bm, k), dtype=torch.float64, device=dev)
-    terms = torch.zeros_like(y)
-    count = torch.zeros((nbr, bm), dtype=torch.int64, device=dev)
-    for c0 in range(0, nb, chunk):
-        blk = op._blocks[c0:c0 + chunk].double()
-        xc = xb[op._block_cols[c0:c0 + chunk].long()]
-        r = rows[c0:c0 + chunk]
-        y.index_add_(0, r, torch.bmm(blk, xc))
-        terms.index_add_(0, r, torch.bmm(blk.abs(), xc.abs()))
-        count.index_add_(0, r, (blk != 0).sum(-1))
-        del blk, xc
-    y, terms, count = y.reshape(-1, k), terms.reshape(-1, k), count.reshape(-1)
-    cr, cc, cv = op._coo
-    cr, cc, cv = cr.long(), cc.long(), cv.double()
-    if cv.numel():
-        y.index_add_(0, cr, cv[:, None] * x64[cc])
-        terms.index_add_(0, cr, cv.abs()[:, None] * x64[cc].abs())
-        count += torch.bincount(cr, minlength=count.numel())
-    return y, terms, count
+def spmm_f64(torch, op, x):
+    """A·X in float64 over a resident operator's image, with Σ|terms| per
+    element and each row's count of nonzero terms (`spmm_ref.spmm_f64`)."""
+    from repro_torch.kernels.spmm_ref import spmm_f64 as exact
+    return exact(op._blocks, op._block_cols, op._row_ptr, op._coo, x)
 
 
 def serve_kernel_check(torch, op, res, by_width: dict):
@@ -2355,6 +2367,7 @@ def serve_kernel_check(torch, op, res, by_width: dict):
     of its bound, and the failures."""
     from repro_torch.core import true_residuals
     from repro_torch.kernels import ops
+    from repro_torch.kernels.spmm_ref import float32_sum_bound
     kern = copy.copy(op)     # off the store: no IOStats after the report
     kern.store, kern.impl = None, "auto"
     plain = copy.copy(kern)
@@ -2362,7 +2375,6 @@ def serve_kernel_check(torch, op, res, by_width: dict):
     v = torch.as_tensor(res.eigenvectors, dtype=torch.float32,
                         device=op.device)
     nev = v.shape[1]
-    u = 2.0 ** -24
 
     def cols(w):
         return v[:, [i % nev for i in range(w)]]
@@ -2371,8 +2383,7 @@ def serve_kernel_check(torch, op, res, by_width: dict):
     for key in by_width["spmm_blocksparse"]:
         x = cols(int(key[1:]))
         exact, terms, count = spmm_f64(torch, op, x)
-        mu = (count + 1).double()[:, None] * u
-        bound = torch.clamp(mu / (1 - mu), min=KERNEL_TOL) * terms
+        bound = float32_sum_bound(terms, count, KERNEL_TOL)
         for name, y, out in (("kernel", kern.matmat(x), errs),
                              ("plain", plain.matmat(x), plain_errs)):
             over = ((y.double() - exact).abs() / bound).nan_to_num(
@@ -2647,6 +2658,215 @@ def serve_phase(torch, dev, embed_serial: dict) -> tuple[dict, dict]:
         f"(device memory limit after drain {limit} bytes; kv "
         f"{json.dumps(kv)})")
     return by_width, other
+
+
+# ------------------------------------------------------------ sharded
+
+def sorted_rel_err(got, want) -> float:
+    """max_i |got_i − want_i| / |want_i| over both spectra sorted."""
+    got, want = np.sort(np.asarray(got)), np.sort(np.asarray(want))
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                        1e-30)))
+
+
+def dist_bytes_line(o: dict) -> str:
+    """One rank's collective bytes of the dist solve beside the count the
+    design gives (`DistOperator.analytic_bytes`), host-staged bytes, peak
+    device memory, panel and launches."""
+    got = {k: o["bytes"].get(k, 0) for k in o["analytic_bytes"]}
+    return (f"rank {o['rank']}: program collectives {json.dumps(got)} "
+            f"(analytic {json.dumps(o['analytic_bytes'])}) | controller "
+            f"scatter {o['bytes'].get('scatter', 0)} gather "
+            f"{o['bytes'].get('gather', 0)} broadcast "
+            f"{o['bytes'].get('broadcast', 0)} | host-staged "
+            f"{o['bytes'].get('staged', 0)} | peak device "
+            f"{o.get('peak_device_bytes', 0) / 1e9:.3f} GB | panel "
+            f"{o['panel']['entries']} entries, {o['panel']['blocks']} dense "
+            f"blocks, COO share {o['panel']['coo_share']:.4f} | launches "
+            f"{json.dumps(o['launches'])}")
+
+
+def check_dist_bytes(label: str, o: dict) -> None:
+    for kind, want in o["analytic_bytes"].items():
+        if o["bytes"].get(kind, 0) != want:
+            fail(f"{label} rank {o['rank']}: {kind} moved "
+                 f"{o['bytes'].get(kind, 0)} bytes, the design gives {want}")
+
+
+def dist_phase(torch, dev, graph, res32, wall32) -> dict:
+    """Phase 30: the sharded layer (`repro_torch.dist`) on the card.
+
+    30a, one rank over NCCL at phase 3's size: a one-rank world, a
+    `DistOperator` on a (1, 1, 1) mesh over phase 3's graph, and phase 5's
+    solve over it through `solve` (eigsh's fused expansion), the launch
+    counters zeroed just before and read just after; eigenvalues within
+    rtol 1e-5 of phase 5's, true residuals ≤ 1e-4, fused steps, SpMM,
+    gram and tsgemm launched, collective bytes equal to the design's.
+    Then, in the same world, the one-rank run of 30b's graph.
+
+    30b, DIST_SHAPE ranks sharing the card over gloo (`dist.spawn` of
+    `examples.dist_eigen_e2e.run_ranks`): the same solve from the same
+    natural-space start block, eigenvalues within rtol 1e-5 of the
+    one-rank run's; the pod-compressed run over DIST_POD_RESTARTS
+    restarts and the compressed stream within the reference's gates;
+    every rank's launches, collective bytes against the design's count,
+    host-staged bytes, peak device memory and COO share printed; every
+    rank's SpMM, gram and tsgemm held against float64 products at the
+    rank's own shapes after its solve (`dist_eigen_e2e.kernel_check`,
+    serve_kernel_check's limits). Returns 30a's launches by width."""
+    from repro_torch.core import solve, true_residuals
+    from repro_torch.dist import DistOperator, Mesh, comm, spawn
+    from repro_torch.examples import dist_eigen_e2e as e2e
+    t_phase = time.perf_counter()
+    cfg = dict(graph=("rmat_normalized", 2 ** DIST_LOG2, 2 ** DIST_NNZ_LOG2,
+                      GRAPH_SEED), nev=NEV, block_size=BLOCK_SIZE,
+               num_blocks=NUM_BLOCKS, tol=TOL, max_restarts=MAX_ITERS,
+               x0_seed=DIST_X0_SEED)
+    comm.init_world("nccl", rank=0, world_size=1, device=dev,
+                    timeout=DIST_TIMEOUT)
+    try:
+        mesh = Mesh((1, 1, 1), device=dev)
+        r, c, v = graph
+        t0 = time.perf_counter()
+        op = DistOperator(2 ** N_LOG2, r, c, v, mesh=mesh)
+        torch.cuda.synchronize()
+        p = op.panel
+        log(f"dist 30a: {mesh.describe()} | panel ({p.n_rows}, {p.n_cols}) "
+            f"of {p.n_entries} entries: {p.n_blocks} dense blocks "
+            f"({p.image_bytes / 1e9:.2f} GB with the COO part), COO share "
+            f"{p.coo_share:.4f} | packed and uploaded in "
+            f"{time.perf_counter() - t0:.1f} s")
+        mesh.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(op, NEV, method="krylov_schur", block_size=BLOCK_SIZE,
+                    num_blocks=NUM_BLOCKS, tol=TOL, max_iters=MAX_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, widths = kernel_launches(), launches_by_width()
+        resid = true_residuals(op, res.eigenvectors, res.eigenvalues)
+        err = sorted_rel_err(res.eigenvalues, res32.eigenvalues)
+        log(f"dist 30a: solve wall {wall:.3f} s (phase 5's GraphOperator "
+            f"solve {wall32:.3f} s) | converged {res.converged} | restarts "
+            f"{res.n_restarts} | fused steps {op.n_fused_steps} | launches "
+            f"{json.dumps(widths)} | peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        log(f"dist 30a: eigenvalues "
+            f"{np.array2string(res.eigenvalues, precision=7)} | max rel err "
+            f"to phase 5's {err:.3e} (limit 1e-5) | true residuals "
+            f"{np.array2string(resid)} (limit {RESID_TOL:g}) | IOStats "
+            f"{json.dumps(res.io_stats)}")
+        log(f"dist 30a: collective bytes {json.dumps(dict(mesh.bytes))} | "
+            f"analytic {json.dumps(dict(op.analytic_bytes))}")
+        if not res.converged:
+            fail("dist 30a: the one-rank solve did not converge")
+        vec = res.eigenvectors
+        if (tuple(vec.shape) != (op.n, NEV)
+                or not bool(torch.isfinite(vec).all())):
+            fail(f"dist 30a: eigenvectors {tuple(vec.shape)} not finite")
+        if err > 1e-5:
+            fail(f"dist 30a: eigenvalues {err:.3e} from phase 5's")
+        if not np.all(resid <= RESID_TOL):
+            fail(f"dist 30a: true residuals above {RESID_TOL}: {resid}")
+        if op.n_fused_steps <= 0:
+            fail("dist 30a: eigsh did not take the fused expansion")
+        require_launched("dist 30a", launches,
+                         ("spmm_blocksparse", "gram", "tsgemm"))
+        for kind, want in op.analytic_bytes.items():
+            if mesh.bytes[kind] != want:
+                fail(f"dist 30a: {kind} moved {mesh.bytes[kind]} bytes, the "
+                     f"design gives {want}")
+        del res, vec
+        breakdown(torch, op, "dist 30a")
+        del op
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        one = e2e.run_ranks(Mesh((1, 1, 1), device=dev), cfg)
+        log(f"dist 30b: one-rank run of 2^{DIST_LOG2} in "
+            f"{time.perf_counter() - t0:.1f} s (build {one['build_s']:.1f} "
+            f"s): solve wall {one['dist']['wall_s']:.3f} s, restarts "
+            f"{one['dist']['restarts']}, eigenvalues "
+            f"{np.array2string(np.asarray(one['dist']['eigenvalues']), precision=7)}")
+    finally:
+        comm.close_world()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not one["dist"]["converged"]:
+        fail("dist 30b: the one-rank run did not converge")
+
+    cfg8 = dict(cfg, pod_restarts=DIST_POD_RESTARTS,
+                w_reference=one["dist"]["eigenvalues"], compressed=True,
+                kernel_check=KERNEL_TOL)
+    t0 = time.perf_counter()
+    outs = spawn(e2e.run_ranks, DIST_SHAPE, backend="gloo", device=dev,
+                 args=(cfg8,), timeout=DIST_TIMEOUT)
+    wall8 = time.perf_counter() - t0
+    head = outs[0]
+    d = head["dist"]
+    err = sorted_rel_err(d["eigenvalues"], one["dist"]["eigenvalues"])
+    devs = head["pod_compressed"]
+    comp = head["compressed"]
+    dev_z = float(np.abs(np.sort(np.abs(comp["eigenvalues"]))
+                         - np.sort(np.abs(one["dist"]["eigenvalues"]))).max())
+    log(f"dist 30b: {head['mesh']} | {len(outs)} ranks in {wall8:.1f} s "
+        f"(spawn, graph, packing and every solve) | solve wall "
+        f"{d['wall_s']:.3f} s against the one-rank run's "
+        f"{one['dist']['wall_s']:.3f} s | converged {d['converged']} | "
+        f"restarts {d['restarts']} | fused steps {head['fused_steps']}")
+    log(f"dist 30b: eigenvalues "
+        f"{np.array2string(np.asarray(d['eigenvalues']), precision=7)} | "
+        f"max rel err to the one-rank run {err:.3e} (limit 1e-5) | true "
+        f"residuals {np.array2string(np.asarray(d['true_residuals']))}")
+    log(f"dist 30b: pod_compressed |λ| deviation per restart "
+        f"{[f'{x:.3e}' for x in devs]} (last < {DIST_POD_TOL:g}, not above "
+        f"twice the smallest after the first) | compressed stream "
+        f"{dev_z:.3e} (limit {DIST_COMP_TOL:g}), {comp['restarts']} "
+        f"restarts, {head['stream_bytes']} stream bytes on rank 0")
+    for o in outs:
+        log(f"dist 30b: {dist_bytes_line(o)}")
+    for o in outs:
+        kc = o["kernel_check"]
+        log(f"dist 30b rank {o['rank']}: kernels at the rank's shapes, max "
+            f"error / Σ|terms| against float64 {json.dumps(kc['errs'])}, "
+            f"plain versions {json.dumps(kc['plain_errs'])} (gram, tsgemm "
+            f"limit {KERNEL_TOL:g}) | SpMM's largest share of its float32 "
+            f"bound {json.dumps(kc['of_bound'])} (limit 1)")
+    same = all(np.array_equal(o["last_h"], head["last_h"])
+               and np.array_equal(o["last_r"], head["last_r"]) for o in outs)
+    log(f"dist 30b: the last step's h and r bit-equal on every rank: {same}")
+    n_pad, b = head["panel"]["n_pad"], BLOCK_SIZE
+    r_groups = DIST_SHAPE[0] * DIST_SHAPE[1]
+    log(f"dist 30b: per SpMM the design gathers n_pad/M·b·4 = "
+        f"{n_pad // DIST_SHAPE[2] * b * 4} and reduces n_pad/R·b·4 = "
+        f"{n_pad // r_groups * b * 4} bytes a rank, plus (2·nb_v·b² + "
+        f"2·b²)·4 all-reduced per step")
+    if not d["converged"]:
+        fail("dist 30b: the sharded solve did not converge")
+    if err > 1e-5:
+        fail(f"dist 30b: eigenvalues {err:.3e} from the one-rank run's")
+    if not np.all(np.asarray(d["true_residuals"]) <= RESID_TOL):
+        fail(f"dist 30b: true residuals above {RESID_TOL}")
+    if not (len(devs) >= 2 and devs[-1] < DIST_POD_TOL
+            and devs[-1] <= 2.0 * min(devs[1:]) + 1e-12):
+        fail(f"dist 30b: pod_compressed deviation {devs}")
+    if not dev_z < DIST_COMP_TOL:
+        fail(f"dist 30b: compressed stream {dev_z:.3e} from the spectrum")
+    if not same:
+        fail("dist 30b: h and r differ between ranks")
+    for o in outs:
+        check_dist_bytes("dist 30b", o)
+        require_launched(f"dist 30b rank {o['rank']}", o["launches"],
+                         ("spmm_blocksparse", "gram", "tsgemm"))
+        if o["bytes"].get("staged", 0) <= 0:
+            fail(f"dist 30b rank {o['rank']}: gloo staged no bytes")
+        if o["kernel_check"]["failures"]:
+            fail(f"dist 30b rank {o['rank']}: "
+                 + "; ".join(o["kernel_check"]["failures"]))
+    log(f"dist: phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return widths
 
 
 def flash_phase(torch, timer, dev):
@@ -2972,8 +3192,11 @@ def main() -> None:
     traced_phase(torch, op)                          # phase 22
     namespace_phase(torch, op, res32)                # phase 24
     spmm_ladder_phase(torch, op, graph, rows[0])     # phase 25
+    del tm                               # the host copy of the image
+    gc.collect()
+    dist_widths = dist_phase(torch, dev, graph, res32, wall32)  # phase 30
     embed_serial = serve_embed_serial(torch, op)     # for phase 29
-    del op, tm, graph                    # free the 12.86 GB image
+    del op, graph                        # free the 12.86 GB image
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3008,12 +3231,14 @@ def main() -> None:
     rows.append(flash_phase(torch, timer, dev))
     launches = serve(torch, dev, rows, card_line)
     rows[-1]["launches"] = launches["flash_attention"]
-    for r in rows:      # the launches at each row's width in phase 29
+    for r in rows:      # the launches at each row's width in phases 29, 30a
         r["serve_launches"] = serve_launches(r["name"], *serve_counts)
+        r["dist_launches"] = serve_launches(r["name"], dist_widths, {
+            "spmm_blocksparse_bf16": 0, "flash_attention": 0})
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "serve_launches")
+            "library_ms", "serve_launches", "dist_launches")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build "
         f"{build_s:.1f} s)")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

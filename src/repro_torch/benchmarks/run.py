@@ -2,21 +2,19 @@
 `benchmarks/run.py`.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--device cpu] \
-        [spmm tasops eigen safs subspace_io]
+        [spmm tasops eigen safs subspace_io dist_e2e]
 
 Prints ``name,case,us_per_call,derived`` CSV, the reference's columns.
-`roofline` (ROADMAP.md queue 1 item 8) and `dist_e2e` (item 5) are not
-ported yet, and naming one raises. Runs on the CUDA card unless
-`--device cpu`.
+`roofline` (ROADMAP.md queue 1 item 8) is not ported yet, and naming it
+raises. Runs on the CUDA card unless `--device cpu`.
 """
 from __future__ import annotations
 
 import argparse
 import importlib
 
-MODULES = ("spmm", "tasops", "eigen", "safs", "subspace_io")
-NOT_PORTED = {"roofline": "ROADMAP.md queue 1 item 8",
-              "dist_e2e": "ROADMAP.md queue 1 item 5"}
+MODULES = ("spmm", "tasops", "eigen", "safs", "subspace_io", "dist_e2e")
+NOT_PORTED = {"roofline": "ROADMAP.md queue 1 item 8"}
 
 
 def main(argv=None) -> None:

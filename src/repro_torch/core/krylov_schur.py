@@ -33,11 +33,24 @@ def _expand(op, v: MultiVector, q: torch.Tensor, h: np.ndarray,
             ) -> tuple[torch.Tensor, np.ndarray, np.ndarray]:
     """One block expansion. Appends q to V; returns (q_next, new H,
     R_next), with the Krylov invariant A·q = V·h + q_next·r and
-    h = h1 + h2 (the bcgs2 convention)."""
+    h = h1 + h2 (the bcgs2 convention). Two paths, as in the reference:
+
+      * local: semi-external SpMM then `ortho.bcgs2` over the out-of-core
+        subspace (two streamed reads of V when fused_passes, four when
+        not);
+      * operator-fused (declares the `fused_expand` capability, e.g. the
+        sharded `dist.DistOperator`): one combined SpMM+CGS2/CholQR2 step
+        over the operator's own subspace shards — V's blocks are not
+        re-read from the store unless the operator rebuilds its stack;
+        the MultiVector is the spill/restart copy.
+    """
     b = q.shape[1]
     v.append_block(q)
-    w = op.matmat(q)                                   # semi-external SpMM
-    q_next, h_col, r_next = bcgs2(v, w, impl=impl, fused=fused_passes)
+    if CAP_FUSED_EXPAND in capabilities(op):
+        q_next, h_col, r_next = op.fused_expand(v, q)
+    else:
+        w = op.matmat(q)                               # semi-external SpMM
+        q_next, h_col, r_next = bcgs2(v, w, impl=impl, fused=fused_passes)
 
     m_old = h.shape[0]
     m_new = m_old + b
@@ -93,10 +106,6 @@ def eigsh(op, nev: int, *, block_size: int = 4, num_blocks: int | None = None,
     Resume restores that state bit-identically and continues at the next
     restart index; it ignores `x0`.
     """
-    if CAP_FUSED_EXPAND in capabilities(op):
-        raise NotImplementedError(
-            "operator-fused expansion (the sharded operator) is not ported "
-            "yet: ROADMAP.md queue 1 item 5")
     b = block_size
     if num_blocks is None:
         num_blocks = 2 * (-(-nev // b)) + 2

@@ -52,12 +52,20 @@ CAP_SPECTRAL_TRANSFORM = "spectral_transform"
 
 
 def capabilities(op) -> frozenset:
-    """The operator's declared capability set (a `capabilities` method or
-    attribute; none declared is the empty set)."""
+    """The operator's declared capability set.
+
+    Operators declare via a `capabilities` method (or attribute).
+    Operators predating the protocol are adapted here, as in the
+    reference: the legacy `supports_fused_expand` attribute is read in
+    this function only, so call sites stay protocol-pure.
+    """
     declared = getattr(op, "capabilities", None)
-    if declared is None:
-        return frozenset()
-    return frozenset(declared() if callable(declared) else declared)
+    if declared is not None:
+        return frozenset(declared() if callable(declared) else declared)
+    caps = set()
+    if getattr(op, "supports_fused_expand", False):
+        caps.add(CAP_FUSED_EXPAND)
+    return frozenset(caps)
 
 
 @dataclasses.dataclass
@@ -338,7 +346,9 @@ class ShiftInvertOperator:
                     iteration.
 
     The declared capability set is {spectral_transform} only: an inner
-    operator's fused-expansion program computes A·q, not (A−σI)⁻¹·q.
+    operator's fused-expansion program computes A·q, not (A−σI)⁻¹·q, so
+    the transform drops CAP_FUSED_EXPAND explicitly, as in the reference
+    (solvers take the streamed bcgs2 path by protocol).
     `n_inner_iters` totals the inner CG iterations.
     """
 

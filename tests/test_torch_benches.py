@@ -276,7 +276,32 @@ def test_run_prints_the_reference_csv_columns(subio_smoke, monkeypatch,
     assert lines[0] == "name,case,us_per_call,derived"
     assert [ln.split(",")[0] for ln in lines[1:]] == [
         "subspace_io_expand", "subspace_io_compress", "subspace_io_e2e"]
-    assert run.MODULES == ("spmm", "tasops", "eigen", "safs", "subspace_io")
-    for name in ("roofline", "dist_e2e"):
-        with pytest.raises(NotImplementedError, match="queue 1 item"):
-            run.main([name])
+    assert run.MODULES == ("spmm", "tasops", "eigen", "safs", "subspace_io",
+                           "dist_e2e")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        run.main(["roofline"])
+
+
+def test_run_dist_e2e_smoke_keeps_the_reference_contract(capsys):
+    """dist_e2e through the harness: the smoke sizes (n = 1,500) on a
+    (1, 1, 1) mesh in this process, local and fused paths from one start
+    block; the CSV rows the reference's harness prints, and the JSON
+    contract (the reference's REQUIRED_FIELDS) that validate checks."""
+    from benchmarks import bench_dist_e2e as ref_bench
+    from repro_torch.benchmarks import bench_dist_e2e, run
+    assert bench_dist_e2e.REQUIRED_FIELDS == ref_bench.REQUIRED_FIELDS
+    run.main(["--device", "cpu", "dist_e2e"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "name,case,us_per_call,derived"
+    assert [ln.split(",")[1] for ln in lines[1:]] == [
+        "n=1500", "n=1500", "pod_compressed"]
+    assert [ln.split(",")[2] for ln in lines[1:3]] == ["local", "dist"]
+    m = bench_dist_e2e.collect(smoke=True, device="cpu")
+    bench_dist_e2e.validate(m)
+    for sect, key in ref_bench.REQUIRED_FIELDS:
+        assert key in m[sect]
+    assert m["parity"]["rtol_1e5_ok"] and m["timings"]["fused_expansions"]
+    assert not m["pod_compressed"]["accumulates"]
+    broken = dict(m, parity=dict(m["parity"], rtol_1e5_ok=False))
+    with pytest.raises(ValueError, match="parity failed"):
+        bench_dist_e2e.validate(broken)

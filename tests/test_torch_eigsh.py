@@ -115,7 +115,9 @@ def test_solve_raises_for_what_is_not_ported(graph, tmp_path):
     as in the reference (a traced solve returns its Tracer, a checkpointed
     one commits snapshots a resume continues from, Lanczos refuses both
     with ValueError), an unknown method is a ValueError, and the sharded
-    operator's fused expansion (ROADMAP queue 1 item 5) still raises."""
+    operator's fused expansion, once refused here, runs: `solve` over a
+    one-rank DistOperator takes the fused branch and finds the spectrum
+    of the GraphOperator solves."""
     from repro_torch.ckpt import CheckpointPolicy, SolveCheckpointer
     from repro_torch.ckpt.checkpoint import valid_steps
     from repro_torch.obs import Tracer
@@ -149,14 +151,13 @@ def test_solve_raises_for_what_is_not_ported(graph, tmp_path):
                                "block_size": B}))
     np.testing.assert_array_equal(direct.eigenvalues, full.eigenvalues)
 
-    class Fused:
-        n, device = op.n, op.device
-
-        def capabilities(self):
-            return frozenset({"fused_expand"})
-
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eigsh(Fused(), NEV, store=store)
+    from repro_torch.dist import DistOperator
+    (r, c, v), _, _ = graph
+    dop = DistOperator(N, r, c, v, device="cpu")
+    fused = solve(dop, NEV, tol=1e-6, max_iters=200)
+    assert fused.converged and dop.n_fused_steps > 0
+    np.testing.assert_allclose(np.sort(fused.eigenvalues),
+                               np.sort(full.eigenvalues), rtol=RTOL)
 
 
 @pytest.mark.parametrize("fused", [True, False])

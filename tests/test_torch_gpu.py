@@ -1122,3 +1122,90 @@ def test_service_sessions_launch_the_kernels_on_card(cuda):
     for jid, want in out["cpu"]["eigenvalues"].items():
         np.testing.assert_allclose(out["cuda"]["eigenvalues"][jid], want,
                                    rtol=1e-5)
+
+
+# ------------------------------------------------------------ sharded layer
+def _dist_cfg():
+    return dict(graph=("rmat_spectral", 1500, 15000, 1), nev=4,
+                block_size=2, tol=1e-7, max_restarts=100, x0_seed=0,
+                local=True)
+
+
+@pytest.mark.gpu
+def test_dist_one_rank_on_card_matches_cpu(cuda):
+    """A one-rank DistOperator under eigsh's fused expansion on the card
+    launches SpMM, gram and tsgemm, and finds the CPU run's spectrum
+    (rtol 1e-5) with the same IOStats from the same start block."""
+    from repro_torch.core import eigsh
+    from repro_torch.dist import DistOperator, Mesh
+    from repro_torch.graphs import rmat_spectral
+    n = 1500
+    r, c, v = rmat_spectral(n, 15000, seed=1)
+    x0 = np.random.default_rng(0).standard_normal((1504, 2)).astype(
+        np.float32)
+    before = (spmm_tile.LAUNCHES, gram.LAUNCHES, tsgemm.LAUNCHES)
+    card = DistOperator(n, r, c, v, mesh=Mesh((1, 1, 1), device=cuda))
+    got = eigsh(card, 4, block_size=2, tol=1e-7, max_restarts=100, x0=x0)
+    after = (spmm_tile.LAUNCHES, gram.LAUNCHES, tsgemm.LAUNCHES)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    cpu = DistOperator(n, r, c, v, device="cpu")
+    want = eigsh(cpu, 4, block_size=2, tol=1e-7, max_restarts=100, x0=x0)
+    assert got.converged and card.n_fused_steps > 0
+    np.testing.assert_allclose(np.sort(got.eigenvalues),
+                               np.sort(want.eigenvalues), rtol=1e-5)
+    assert got.io_stats == want.io_stats
+
+
+@pytest.mark.gpu
+def test_dist_panel_bridge_on_card(cuda, rng):
+    """The reference's bridge at its default 8×8 float32 blocks through
+    the SpMM kernel, against the plain version on the same inputs."""
+    from repro_torch.dist import layout
+    from repro_torch.dist.dspmm import pack_edge_panels, panel_spmm_blocksparse
+    n, R, M = 512, 2, 2
+    r, c, v = rmat_graph(n, 4000, seed=1, symmetric=True)
+    n_pad = layout.padded_n(n, R, M)
+    perm = layout.vertex_permutation(n_pad, R, M)
+    pc, pr, pv, _ = pack_edge_panels(n_pad, perm[r], perm[c], v,
+                                     r_groups=R, m_groups=M)
+    x = _t(rng.standard_normal((n_pad // M, 4)).astype(np.float32))
+    before = spmm_tile.LAUNCHES
+    got = panel_spmm_blocksparse(pr[1, 0], pc[1, 0], pv[1, 0], x.to(cuda),
+                                 n_pad // R)
+    assert spmm_tile.LAUNCHES == before + 1
+    want = panel_spmm_blocksparse(pr[1, 0], pc[1, 0], pv[1, 0], x,
+                                  n_pad // R)   # a CPU tensor: the plain one
+    _close(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,shape", [("nccl", (1, 1, 1)),
+                                           ("gloo", (1, 1, 2))])
+def test_dist_world_on_card(cuda, backend, shape):
+    """A world of ranks on the card (nccl: one rank; gloo: two sharing
+    the card, payloads staged through pinned host memory): the fused
+    path's spectrum at rtol 1e-5 of the local path's, every rank's
+    kernels launched and collective bytes equal to the design's count."""
+    from repro_torch.dist import spawn
+    from repro_torch.examples.dist_eigen_e2e import run_ranks
+    outs = spawn(run_ranks, shape, backend=backend, device="cuda",
+                 args=(_dist_cfg(),), timeout=300)
+    head = outs[0]
+    np.testing.assert_allclose(np.sort(head["dist"]["eigenvalues"]),
+                               np.sort(head["local"]["eigenvalues"]),
+                               rtol=1e-5)
+    for o in outs:
+        assert all(n > 0 for n in o["launches"].values()), o["launches"]
+        for kind, want in o["analytic_bytes"].items():
+            assert o["bytes"][kind] == want, (kind, o["bytes"])
+        assert (o["bytes"].get("staged", 0) > 0) == (backend == "gloo")
+
+
+@pytest.mark.gpu
+def test_dist_nccl_refuses_more_ranks_than_cards(cuda):
+    from repro_torch.dist import spawn
+    from repro_torch.examples.dist_eigen_e2e import run_ranks
+    ranks = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match="one card per rank"):
+        spawn(run_ranks, (1, 1, ranks), backend="nccl", device="cuda",
+              args=(_dist_cfg(),))

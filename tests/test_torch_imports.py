@@ -53,7 +53,12 @@ def test_import_loads_no_jax_and_no_reference_module():
               "repro_torch.serve.arbiter", "repro_torch.serve.session",
               "repro_torch.serve.scheduler", "repro_torch.serve.api",
               "repro_torch.serve.paged_kv", "repro_torch.launch",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.dist",
+              "repro_torch.dist.layout", "repro_torch.dist.comm",
+              "repro_torch.dist.compress", "repro_torch.dist.dspmm",
+              "repro_torch.dist.dist_operator",
+              "repro_torch.examples.dist_eigen_e2e",
+              "repro_torch.benchmarks.bench_dist_e2e"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -85,7 +90,11 @@ def test_sources_import_no_jax_and_no_reference_module():
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for mod in ("serve/arbiter.py", "serve/session.py", "serve/scheduler.py",
                 "serve/api.py", "serve/paged_kv.py", "serve/__init__.py",
-                "launch/serve.py", "launch/__init__.py"):
+                "launch/serve.py", "launch/__init__.py", "dist/layout.py",
+                "dist/comm.py", "dist/compress.py", "dist/dspmm.py",
+                "dist/dist_operator.py", "dist/__init__.py",
+                "examples/dist_eigen_e2e.py",
+                "benchmarks/bench_dist_e2e.py"):
         assert os.path.join(PORT, mod) in paths, mod
     offenders = []
     for path in paths:
@@ -125,15 +134,20 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
         solve(NoDevice(), 2, block_size=2)
     assert TieredStore(device="cpu").device.type == "cpu"
     # a MultiVector that builds its own store, and the ladders
-    from repro_torch.benchmarks import (bench_safs, bench_spmm,
-                                        bench_subspace_io, bench_tasops)
+    from repro_torch.benchmarks import (bench_dist_e2e, bench_safs,
+                                        bench_spmm, bench_subspace_io,
+                                        bench_tasops)
+    from repro_torch.examples import dist_eigen_e2e
     from repro_torch.core import MultiVector
     with pytest.raises(RuntimeError, match="CUDA"):
         MultiVector(None, 8)
     assert MultiVector(None, 8, device="cpu").store.device.type == "cpu"
-    for bench in (bench_spmm, bench_tasops, bench_subspace_io, bench_safs):
+    for bench in (bench_spmm, bench_tasops, bench_subspace_io, bench_safs,
+                  bench_dist_e2e):
         with pytest.raises(RuntimeError, match="CUDA"):
             bench.collect(smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dist_eigen_e2e.main(["--ranks", "1", "--n", "100", "--nnz", "400"])
 
 
 def test_serve_entry_points_without_device_raise_without_cuda(monkeypatch,

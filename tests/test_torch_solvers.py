@@ -349,6 +349,28 @@ def test_capabilities_of_the_transforms(tm):
         P.ShiftInvertOperator(op, 0.0, inner_solver="gmres")
 
 
+def test_capabilities_honour_the_legacy_attribute(tm):
+    """An operator that predates the protocol and sets only the legacy
+    `supports_fused_expand = True` declares the fused expansion, as the
+    reference's `capabilities` adapts it; one with neither declares
+    nothing; a shift-invert transform over the legacy operator drops the
+    capability explicitly."""
+    op = _port_op(tm)
+
+    class Legacy:
+        supports_fused_expand = True
+        n, device = op.n, op.device
+
+    class Plain:
+        n, device = op.n, op.device
+
+    for cls, want in ((Legacy, {P.CAP_FUSED_EXPAND}), (Plain, set())):
+        assert P.capabilities(cls()) == frozenset(want)
+        assert R.capabilities(cls()) == frozenset(want)
+    si = P.ShiftInvertOperator(Legacy(), 0.5, inner_solver="cg")
+    assert P.capabilities(si) == frozenset({P.CAP_SPECTRAL_TRANSFORM})
+
+
 # ------------------------------------------------------------ Lanczos
 @pytest.mark.parametrize("fused", [True, False])
 def test_lanczos_matches_reference(tm, fused):
