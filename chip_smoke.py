@@ -64,6 +64,10 @@ otherwise. Phases, each of which fails the run:
      identity, timed beside the plain version, PyTorch's
      scaled_dot_product_attention and the card's bound, with its TFLOP/s
      and the PV design the bf16 kernel ships (P split into bf16 hi + lo);
+     then at hubert-xlarge's head dim 80 (q, k, v (2, 16, 2048, 80)),
+     bf16 and float32, causal and not, each within FLASH_TOL of the plain
+     version, the bf16 non-causal one (hubert's prefill) timed the same
+     way;
  12. yi-9b serving at full width and all 48 layers in bf16, weights drawn
      on the card by `init_model` from a seed: 4 requests of 2,048 prompt
      tokens through `prefill_with_cache(..., cache_len=2080)`, then 32
@@ -250,10 +254,39 @@ The sharded layer (`repro_torch.dist`), after 25 on phase 3's graph:
      within serve_kernel_check's limits; a rank that fails or hangs fails
      the phase at the world's timeout.
 
+The other LM families, after 13:
+ 31. lm-families: one model of each of the other nine architectures at
+     its published widths in bf16, weights drawn on the card from a seed
+     (depth cut only where the card or the time limit forces it, as
+     LM_FAMILIES says, each cut logged), each freed before the next.
+     Each decoder serves its prompt through `prefill_with_cache` and
+     greedy `decode_step`s, hubert (an encoder) runs one forward over
+     frames; the launch counters are zeroed just before and read just
+     after. Gates: the parameter count equals `param_count()` plus the
+     leaves it leaves out (`uncounted_params`); finite logits; flash
+     launched once per self-attention layer of kind "attn" in the
+     prefill or forward (causal, or not for hubert; swa, cross, SSM and
+     RG-LRU layers are plain PyTorch) and never in decode; the decode
+     logits against a full forward over the same tokens at the
+     generated positions, max ‖Δ‖₂/‖logits‖₂ ≤ SERVE_TOL (a forward of
+     plain attention runs on whole Q_CHUNKs: the tokens past the
+     generated ones are filler, which causal layers do not let the
+     compared positions see). For the MoE models that gate runs on a
+     short prompt at capacity_factor = n_experts / top_k (nothing
+     dropped), positions where a layer routed a token to other experts
+     in the two runs left out, and only where the router's margin at
+     the k-th place was below MOE_TIE_MARGIN in a run (a rounding, not a
+     fault); the served run at the config's 1.25 logs how many routings
+     it dropped. Logged per model: weight draw seconds, prefill seconds
+     and tokens/s, decode ms/step, peak device memory; for grok a timed
+     split of one MoE layer's prefill into routing, dispatch, expert
+     GEMMs and combine.
+
 Then one JSON line of kernels (the four PR-15 rows, the nine width rows
-of 14, flash attention; each row's `serve_launches` the launches at its
-width in phase 29, its `dist_launches` those in phase 30a), the card
-line, and the final result line.
+of 14, flash attention at yi-9b's shape and at hubert's head dim 80;
+each row's `serve_launches` the launches at its width in phase 29, its
+`dist_launches` those in phase 30a), the card line, and the final result
+line.
 """
 from __future__ import annotations
 
@@ -366,6 +399,40 @@ SERVE_PROMPT, SERVE_BATCH, SERVE_DECODE, SERVE_SEED = 2048, 4, 32, 0
 # walk of bf16 roundings that is about sqrt(480) * 2^-9 = 0.043 of the
 # logits' norm, and twice that is the limit
 SERVE_TOL = 0.1                # max over positions of ‖Δ‖₂ / ‖logits‖₂
+
+# flash at hubert-xlarge's prefill shape (B, H, Hkv, S, d)
+FLASH_HUBERT = (2, 16, 16, 2048, 80)
+
+# the other LM families (phase 31): (config, layers on the card or None
+# for all, requests, prompt tokens, decode steps). Widths are the
+# published ones; depth is cut where the bf16 weights would not fit the
+# card's 80 GB beside the activations, or would take the phase past its
+# ~150 s: mistral-large 4 of 88 layers (12.7 GB), grok-1 2 of 64 (23
+# GB), arctic 1 of 35 (28 GB: 128 experts of 3 x 7168 x 4864),
+# llama-3.2-vision one pattern of 5 (4 self + 1 cross, 12.8 GB).
+# danube's 5,120 and recurrentgemma's 3,072 prompts pass their windows
+# (4,096 and 2,048) and are whole Q_CHUNKs of the plain attention;
+# hubert is an encoder (no decode).
+LM_FAMILIES = (
+    ("qwen2-1.5b", None, 2, 2048, 16),
+    ("h2o-danube-3-4b", None, 1, 5120, 16),
+    ("mistral-large-123b", 4, 1, 2048, 8),
+    ("grok-1-314b", 2, 2, 1024, 8),
+    ("arctic-480b", 1, 1, 1024, 8),
+    ("llama-3.2-vision-90b", 5, 1, 1024, 8),
+    ("recurrentgemma-2b", None, 1, 3072, 16),
+    ("mamba2-780m", None, 2, 2048, 16),
+    ("hubert-xlarge", None, 2, 2048, 0),
+)
+LM_SEED = 0
+# the MoE gate's short run (nothing dropped): prompt tokens, decode steps
+MOE_GATE_PROMPT, MOE_GATE_DECODE = 256, 8
+# a token routed to other experts by decode and by the full forward is
+# left out of the MoE gate only where its router-logit gap between the
+# k-th and (k+1)-th expert was below this in one of the runs: the two
+# runs' bf16 residual streams differ by ~2^-8 relative, which moves
+# unit-variance router logits by ~0.004
+MOE_TIE_MARGIN = 0.05
 
 
 def fail(msg: str) -> None:
@@ -706,6 +773,7 @@ def zero_counters() -> None:
     from repro_torch.kernels import flashattn, gram, spmm_tile, tsgemm
     for mod in (spmm_tile, gram, tsgemm, flashattn):
         mod.LAUNCHES = 0
+    flashattn.LAUNCHES_BY_D.clear()
     spmm_tile.LAUNCHES_BF16 = 0
     spmm_tile.LAUNCHES_BY_K.clear()
     gram.LAUNCHES_BY_SHAPE.clear()
@@ -2921,14 +2989,59 @@ def flash_phase(torch, timer, dev):
         f"{flashattn.PV_DESIGN}")
     if not rel <= FLASH_TOL:
         fail(f"flash_attention disagrees with its plain version: {rel}")
+    del q, k, v
     torch.cuda.synchronize()
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flashattn.cu",
-            "replaces": "src/repro/kernels/flashattn.py:28",
-            "count": lambda: flashattn.LAUNCHES, "max_abs_err": abs_err,
-            "ms": ms,
-            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms}
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flashattn.cu",
+           "replaces": "src/repro/kernels/flashattn.py:28",
+           "count": lambda: flashattn.LAUNCHES_BY_D.get(FLASH_SERVE[4], 0),
+           "max_abs_err": abs_err,
+           "ms": ms,
+           "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+           "library_ms": lib_ms}
+
+    # hubert-xlarge's head dim: bf16 on 128 columns (TMA zero-fills
+    # 80-127), float32 on an instantiation of its own
+    b, h, hkv, s, d = FLASH_HUBERT
+    q, k, v = qkv(b, h, hkv, s, s, d)
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        for causal in (True, False):
+            before = flashattn.LAUNCHES
+            out = ops.flash_attention(qd, kd, vd, causal=causal)
+            if flashattn.LAUNCHES != before + 1 or out.shape != qd.shape:
+                fail(f"flash_attention at d = {d} {dtype} did not launch "
+                     f"once or returned {tuple(out.shape)}")
+            abs_d, rel = err(out, qd, kd, vd, causal)
+            log(f"kernel flash_attention: q {(b, h, s, d)} {dtype} "
+                f"{'causal' if causal else 'not causal'} | rel err "
+                f"{rel:.3e} (tol {FLASH_TOL:g}), max abs err {abs_d:.3e}")
+            if not rel <= FLASH_TOL:
+                fail(f"flash_attention at d = {d} disagrees with its plain "
+                     f"version: {rel}")
+            if dtype == torch.bfloat16 and not causal:
+                abs_80 = abs_d
+        del qd, kd, vd, out
+    ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=False))
+    plain = timer.ms(lambda: ops.flash_attention(q, k, v, causal=False,
+                                                 impl="ref"), reps=3)
+    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    flops = 4 * b * h * s * s * d
+    bms, by = bound_ms(4 * b * h * s * d * 2, flops, BF16_FLOPS_PER_S)
+    log(f"kernel flash_attention: hubert prefill q/k/v {(b, h, s, d)} bf16 "
+        f"not causal | {ms:.3f} ms = {flops / ms / 1e9:.1f} TFLOP/s, plain "
+        f"{plain:.3f} ms, library scaled_dot_product_attention "
+        f"{lib_ms:.3f} ms, bound {bms:.4f} ms ({by}, bf16 tensor-core "
+        f"peak)")
+    del q, k, v
+    torch.cuda.synchronize()
+    return [row, {"name": "flash_attention_d80", "route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/flashattn.cu",
+                  "replaces": "src/repro/kernels/flashattn.py:28",
+                  "count": lambda: flashattn.LAUNCHES_BY_D.get(
+                      FLASH_HUBERT[4], 0),
+                  "max_abs_err": abs_80, "ms": ms, "plain_ms": plain,
+                  "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}]
 
 
 def serve(torch, dev, rows, card_line: str):
@@ -3050,19 +3163,23 @@ def _device_ms_by_kind(prof, kinds, label=lambda name: None):
     return cats, counts, sorted(others, reverse=True)[:5]
 
 
-def serve_breakdown(torch, tf, params, cfg, prompt, steps: int = 4) -> None:
+def serve_breakdown(torch, tf, params, cfg, prompt, steps: int = 4,
+                    enc=None, label: str = "serve") -> dict:
     """Device time by kind over one profiled prefill and a few decode
-    steps, beside their wall time (the idle share says how far the host
-    holds the card back)."""
+    steps (an encoder: one profiled forward), beside their wall time (the
+    idle share says how far the host holds the card back). Returns the
+    idle share by phase."""
     from torch.profiler import ProfilerActivity, profile
     kinds = {"flash_attention": ("flash_attention_kernel",
                                  "flash_wgmma_kernel"),
              "gemm": ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass"),
              "memcpy": ("Memcpy", "Memset")}
     cache_len = prompt.shape[1] + steps
-    for phase in ("prefill", "decode"):
+    idle = {}
+    for phase in (("prefill", "decode") if cfg.decoder else ("forward",)):
         if phase == "decode":
             _, cache = tf.prefill_with_cache(params, cfg, prompt,
+                                             encoder=enc,
                                              cache_len=cache_len)
             tok = prompt[:, -1:]
         torch.cuda.synchronize()
@@ -3070,8 +3187,10 @@ def serve_breakdown(torch, tf, params, cfg, prompt, steps: int = 4) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if phase == "prefill":
-                tf.prefill_with_cache(params, cfg, prompt,
+                tf.prefill_with_cache(params, cfg, prompt, encoder=enc,
                                       cache_len=cache_len)
+            elif phase == "forward":
+                tf.logits_fn(params, cfg, prompt)
             else:
                 for t in range(prompt.shape[1], cache_len):
                     tf.decode_step(params, cfg, cache, tok, t)
@@ -3079,8 +3198,9 @@ def serve_breakdown(torch, tf, params, cfg, prompt, steps: int = 4) -> None:
             wall = (time.perf_counter() - t0) * 1e3
         cats, _, others = _device_ms_by_kind(prof, kinds)
         busy = sum(cats.values())
-        n = 1 if phase == "prefill" else steps
-        log(f"serve breakdown ({phase}, profiled, {n} call(s)): wall "
+        n = steps if phase == "decode" else 1
+        idle[phase] = 1 - busy / wall
+        log(f"{label} breakdown ({phase}, profiled, {n} call(s)): wall "
             f"{wall / n:.2f} ms per call | device busy {busy / n:.2f} ms, "
             f"idle share {1 - busy / wall:.3f} | device ms per call by "
             f"kind {json.dumps({k: round(v / n, 3) for k, v in cats.items()})}"
@@ -3091,11 +3211,12 @@ def serve_breakdown(torch, tf, params, cfg, prompt, steps: int = 4) -> None:
                         e.key[:40]) for e in prof.key_averages()
                        if "CUDA" not in str(getattr(e, "device_type", ""))),
                       reverse=True)[:6]
-        log(f"serve breakdown ({phase}): largest host ops (self ms, count, "
-            f"name): " + "; ".join(f"{ms:.2f}, {cnt}, {name}"
-                                   for ms, cnt, name in host))
+        log(f"{label} breakdown ({phase}): largest host ops (self ms, "
+            f"count, name): " + "; ".join(f"{ms:.2f}, {cnt}, {name}"
+                                          for ms, cnt, name in host))
         if phase == "decode":
             del cache
+    return idle
 
 
 def _leaves(tree):
@@ -3107,6 +3228,351 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ------------------------------------------------------------ LM families
+
+def uncounted_params(cfg) -> int:
+    """The parameters `cfg.param_count()` leaves out (negative where it
+    counts one the model does not have), layer by layer: norm scales and
+    LayerNorm biases, QKV biases, the SSM's dt projection columns, conv
+    channels of B and C, conv bias, a_log, dt_bias, d_skip and gated-norm
+    scale, the RG-LRU's two gate matrices (it counts 3·rw for conv bias
+    and Λ, which are 2·rw), and the audio frontend's input projection in
+    place of a token table."""
+    d, ln = cfg.d_model, 2 if cfg.norm == "layernorm" else 1
+    extra = ln * d                                       # final norm
+    if cfg.frontend == "audio":
+        extra += d * d - cfg.vocab_size * d
+    kinds = list(cfg.pattern) * cfg.n_super + \
+        list(cfg.pattern[:cfg.n_remainder])
+    ffw = d * cfg.d_ff * (3 if cfg.glu else 2)
+    for kind in kinds:
+        extra += ln * d                                  # norm1
+        if kind in ("attn", "swa", "cross") and cfg.qkv_bias:
+            extra += (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd
+        if kind == "ssm":
+            d_in, n = cfg.ssm_expand * d, cfg.ssm_state
+            h = d_in // cfg.ssm_head_dim
+            extra += d * h + 2 * n * cfg.ssm_conv + (d_in + 2 * n) \
+                + 3 * h + d_in
+            extra -= ffw if cfg.d_ff else 0              # no FFN here
+        elif cfg.d_ff > 0:
+            extra += ln * d                              # norm2
+        if kind == "rglru":
+            rw = cfg.rglru_width or d
+            extra += 2 * rw * rw - rw
+    return extra
+
+
+def flash_layers(cfg) -> int:
+    """Layers of kind "attn" (the ones that run the flash kernel)."""
+    kinds = list(cfg.pattern) * cfg.n_super + \
+        list(cfg.pattern[:cfg.n_remainder])
+    return sum(k == "attn" for k in kinds)
+
+
+def _routing(log) -> list:
+    """ROUTING_LOG entries as (experts, margin) on the host."""
+    return [(e["experts"].cpu(), e["margin"].float().cpu()) for e in log]
+
+
+def moe_split(torch, cfg, p, x) -> dict:
+    """Device ms of one MoE layer's prefill by step (CUDA events, each
+    step timed alone on the layer's own weights and input): routing (the
+    router GEMM, softmax, top-k, queue positions, one-hot tensors),
+    dispatch (x into the experts' slots), the expert GEMMs and combine."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    from repro_torch.models.modules import act_fn, apply_linear
+    g, s, _ = x.shape
+    e, k, cap = cfg.n_experts, cfg.top_k, moe.capacity(cfg, s)
+    state = {}
+
+    def routing():
+        probs = torch.softmax(apply_linear(p["router"], x).float(), dim=-1)
+        gv, gi = moe.top_k(probs, k)
+        gv = gv / gv.sum(-1, keepdim=True)
+        oh = F.one_hot(gi, e).int()
+        pos = (torch.cumsum(oh.reshape(g, s * k, e), dim=1)
+               * oh.reshape(g, s * k, e) - 1).reshape(g, s, k, e).amax(-1)
+        keep = pos < cap
+        oh_c = F.one_hot(torch.where(keep, pos, cap).long(),
+                         cap + 1)[..., :cap].to(x.dtype)
+        disp = torch.einsum("gske,gskc->gsec", oh.to(x.dtype), oh_c)
+        gv_e = torch.einsum("gsk,gske->gse", gv * keep,
+                            oh.float()).to(x.dtype)
+        state["dispatch"], state["combine"] = disp, disp * gv_e[..., None]
+
+    def dispatch():
+        state["xin"] = torch.einsum("gsec,gsd->gecd", state["dispatch"], x)
+
+    def experts():
+        xin = state["xin"]
+        h = torch.einsum("gecd,edf->gecf", xin, p["up"])
+        if cfg.glu:
+            h = act_fn(cfg)(torch.einsum("gecd,edf->gecf", xin,
+                                         p["gate"])) * h
+        else:
+            h = act_fn(cfg)(h)
+        state["out_e"] = torch.einsum("gecf,efd->gecd", h, p["down"])
+
+    def combine():
+        torch.einsum("gsec,gecd->gsd", state["combine"], state["out_e"])
+
+    out = {}
+    for name, fn in (("routing", routing), ("dispatch", dispatch),
+                     ("experts", experts), ("combine", combine)):
+        fn()                                             # warm up
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(3):
+            fn()
+        t1.record()
+        t1.synchronize()
+        out[name] = t0.elapsed_time(t1) / 3
+    return out
+
+
+def serve_family(torch, tf, params, cfg, prompt, steps: int, enc=None):
+    """Prefill, then `steps` greedy decode steps, timed on the host clock
+    around synchronized calls. Returns (prefill logits' last position's
+    tokens, generated tokens (B, steps), decode logits (B, steps, V),
+    prefill s, decode s, flash launches in prefill, in decode)."""
+    from repro_torch.kernels import flashattn
+    before = flashattn.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill_with_cache(
+        params, cfg, prompt, encoder=enc,
+        cache_len=prompt.shape[1] + steps)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    in_prefill = flashattn.LAUNCHES - before
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{cfg.name}: prefill logits are not finite")
+    tok = logits[:, -1:].argmax(-1).int()
+    del logits
+    generated, dec = [], []
+    before = flashattn.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(prompt.shape[1], prompt.shape[1] + steps):
+        generated.append(tok)
+        out, cache = tf.decode_step(params, cfg, cache, tok, t)
+        dec.append(out[:, 0])
+        tok = out.argmax(-1).int()
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    in_decode = flashattn.LAUNCHES - before
+    del cache
+    return (torch.cat(generated, dim=1), torch.stack(dec, dim=1),
+            t_prefill, t_decode, in_prefill, in_decode)
+
+
+def decode_vs_forward(torch, tf, params, cfg, prompt, generated, dec,
+                      enc=None, routing=None) -> str:
+    """The decode logits against one full forward over prompt and
+    generated tokens at the generated positions; returns the log text,
+    fails above SERVE_TOL. A model with plain attention (swa, cross) runs
+    its forward on whole Q_CHUNKs: filler tokens after the generated ones
+    are seen by no compared position (every layer is causal). With
+    `routing` (the decode run's ROUTING_LOG, MoE), positions a layer
+    routed to other experts in the forward are left out where either
+    run's router margin there was below MOE_TIE_MARGIN, and fail the
+    gate where neither was."""
+    from repro_torch.models import attention as att
+    from repro_torch.models import moe
+    seq = torch.cat([prompt, generated], dim=1)
+    p0, n = prompt.shape[1], seq.shape[1]
+    if any(k in ("swa", "cross") for k in cfg.pattern) and n > att.Q_CHUNK:
+        pad = -n % att.Q_CHUNK
+        seq = torch.cat([seq, torch.zeros_like(seq[:, :1]).expand(
+            -1, pad)], dim=1)
+    if routing is not None:
+        moe.ROUTING_LOG = []
+    full = tf.logits_fn(params, cfg, seq, encoder=enc)[:, p0:n]
+    keep = torch.ones(dec.shape[:2], dtype=torch.bool)
+    note = ""
+    if routing is not None:
+        fwd = _routing(moe.ROUTING_LOG)
+        moe.ROUTING_LOG = None
+        layers = len(fwd)
+        flips = 0
+        for layer, (f_exp, f_mar) in enumerate(fwd):
+            for t in range(dec.shape[1]):
+                d_exp, d_mar = routing[t * layers + layer]
+                same = (f_exp[:, p0 + t].sort(-1).values
+                        == d_exp[:, 0].sort(-1).values).all(-1)
+                for b in torch.nonzero(~same).flatten().tolist():
+                    flips += 1
+                    margin = min(float(f_mar[b, p0 + t]),
+                                 float(d_mar[b, 0]))
+                    if margin >= MOE_TIE_MARGIN:
+                        fail(f"{cfg.name}: decode and forward route token "
+                             f"{p0 + t} of request {b} in layer {layer} "
+                             f"to other experts at a router margin of "
+                             f"{margin:.4f} (≥ {MOE_TIE_MARGIN})")
+                    keep[b, t] = False
+        note = (f" | routings differing between the runs: {flips} (each "
+                f"at a router margin < {MOE_TIE_MARGIN}); positions "
+                f"compared {int(keep.sum())} of {keep.numel()}")
+        if not bool(keep.any()):
+            fail(f"{cfg.name}: no position left to compare")
+    if not bool(torch.isfinite(full).all()):
+        fail(f"{cfg.name}: forward logits are not finite")
+    rel = (dec - full).norm(dim=-1) / full.norm(dim=-1)
+    worst = float(rel[keep.to(rel.device)].max())
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    if not worst <= SERVE_TOL:
+        fail(f"{cfg.name}: decode logits disagree with the full forward: "
+             f"{worst}")
+    return (f"decode vs full forward over {n} tokens ({seq.shape[1] - n} "
+            f"filler): max ‖Δ‖/‖logits‖ {worst:.4f} (limit {SERVE_TOL:g}), "
+            f"greedy tokens agree at {agree:.3f}{note}")
+
+
+def lm_families_phase(torch, dev, card_line: str) -> dict:
+    """Phase 31: the other nine architectures at full width (LM_FAMILIES),
+    one at a time. Returns per model its flash launches in the counted
+    prefill or forward."""
+    from repro_torch import configs
+    from repro_torch.kernels import flashattn
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.modules import dtype_of
+    t_phase = time.perf_counter()
+    out = {}
+    for name, layers, batch, plen, steps in LM_FAMILIES:
+        t_model = time.perf_counter()
+        cfg = configs.get(name)
+        cut = ""
+        if layers is not None and layers != cfg.n_layers:
+            cut = f", cut from {cfg.n_layers} layers"
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tf.init_model(LM_SEED, cfg, device=dev)
+        torch.cuda.synchronize()
+        t_draw = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in _leaves(params))
+        want = cfg.param_count() + uncounted_params(cfg)
+        w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        log(f"lm {name}: {cfg.n_layers} layers{cut} ({cfg.pattern}), "
+            f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"x {cfg.hd}, {n_params} parameters = param_count "
+            f"{cfg.param_count()} + {uncounted_params(cfg)} it leaves out, "
+            f"{w_bytes / 1e9:.2f} GB, drawn on the card in {t_draw:.2f} s")
+        if n_params != want:
+            fail(f"{name} has {n_params} parameters, not {want}")
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+        enc = None
+        if cfg.frontend == "patch":
+            enc = torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                              generator=gen, device=dev).to(dtype_of(cfg))
+        n_flash = flash_layers(cfg)
+        if not cfg.decoder:
+            frames = torch.randn((batch, plen, cfg.d_model), generator=gen,
+                                 device=dev).to(dtype_of(cfg))
+            tf.logits_fn(params, cfg, frames[:, :128])       # warm up
+            zero_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = tf.logits_fn(params, cfg, frames)
+            torch.cuda.synchronize()
+            t_fwd = time.perf_counter() - t0
+            flash = flashattn.LAUNCHES_BY_D.get(cfg.hd, 0)
+            peak = torch.cuda.max_memory_allocated()
+            log(f"lm {name}: forward {batch} x {plen} frames in {t_fwd:.3f} "
+                f"s = {batch * plen / t_fwd:.0f} frames/s | logits "
+                f"{tuple(logits.shape)} | flash launches {flash} (want "
+                f"{n_flash}) | peak device memory {peak / 1e9:.2f} GB")
+            if not bool(torch.isfinite(logits).all()) or \
+                    tuple(logits.shape) != (batch, plen, cfg.vocab_size):
+                fail(f"{name}: forward logits not finite or of shape "
+                     f"{tuple(logits.shape)}")
+            if flash != n_flash or flashattn.LAUNCHES != n_flash:
+                fail(f"{name}: flash launched {flashattn.LAUNCHES} times in "
+                     f"the forward ({flash} at d = {cfg.hd}), not "
+                     f"{n_flash}")
+            del logits
+            serve_breakdown(torch, tf, params, cfg, frames, label=f"lm {name}")
+            out[name] = {"flash": flash}
+            del params, frames
+            continue
+        prompt = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+            0, cfg.vocab_size, (batch, plen)).astype(np.int32)).to(dev)
+        _, wc = tf.prefill_with_cache(params, cfg, prompt[:, :128],
+                                      encoder=enc, cache_len=130)
+        tf.decode_step(params, cfg, wc, prompt[:, :1], 128)  # warm up
+        del wc
+        if cfg.n_experts:
+            moe.ROUTING_LOG = []
+        zero_counters()
+        generated, dec, t_pre, t_dec, f_pre, f_dec = serve_family(
+            torch, tf, params, cfg, prompt, steps, enc)
+        peak = torch.cuda.max_memory_allocated()
+        drops = ""
+        if cfg.n_experts:
+            served = moe.ROUTING_LOG
+            moe.ROUTING_LOG = None
+            dropped = sum(int(e["dropped"]) for e in served)
+            routed = sum(e["experts"].numel() for e in served)
+            drops = (f" | routings dropped at capacity_factor "
+                     f"{cfg.capacity_factor:g}: {dropped} of {routed} "
+                     f"(prefill and decode)")
+        log(f"lm {name}: prefill {batch} x {plen} tokens in {t_pre:.3f} s "
+            f"= {batch * plen / t_pre:.0f} tokens/s | decode {steps} steps "
+            f"of {batch}: {t_dec / steps * 1e3:.2f} ms/step | flash "
+            f"launches prefill {f_pre} (want {n_flash}), decode {f_dec} | "
+            f"peak device memory {peak / 1e9:.2f} GB{drops} | {card_line}")
+        if f_pre != n_flash or f_dec != 0:
+            fail(f"{name}: flash launched {f_pre} times in the prefill and "
+                 f"{f_dec} in decode, not {n_flash} and 0")
+        if not bool(torch.isfinite(dec).all()):
+            fail(f"{name}: decode logits are not finite")
+        if cfg.n_experts:
+            x = torch.randn((batch, plen, cfg.d_model), generator=gen,
+                            device=dev).to(dtype_of(cfg))
+            split = moe_split(torch, cfg,
+                              tf._layer(params["stack"]["l0"], 0)["ffn"], x)
+            split = {k: round(v, 3) for k, v in split.items()}
+            log(f"lm {name}: one MoE layer's prefill ({batch} x {plen} "
+                f"tokens, capacity {moe.capacity(cfg, plen)} per expert), "
+                f"device ms by step {json.dumps(split)}")
+            del x
+            # the gate: a short run with nothing dropped
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+            prompt = prompt[:, :MOE_GATE_PROMPT]
+            moe.ROUTING_LOG = []
+            generated, dec, *_ = serve_family(
+                torch, tf, params, cfg, prompt, MOE_GATE_DECODE, enc)
+            routing = [r for r in _routing(moe.ROUTING_LOG)
+                       if r[0].shape[1] == 1]         # decode's, in order
+            moe.ROUTING_LOG = None
+            text = decode_vs_forward(torch, tf, params, cfg, prompt,
+                                     generated, dec, enc, routing)
+            text = (f"capacity_factor {cfg.capacity_factor:g}, prompt "
+                    f"{MOE_GATE_PROMPT}, {MOE_GATE_DECODE} steps: " + text)
+        else:
+            text = decode_vs_forward(torch, tf, params, cfg, prompt,
+                                     generated, dec, enc)
+        log(f"lm {name}: {text}")
+        serve_breakdown(torch, tf, params, cfg, prompt, enc=enc,
+                        label=f"lm {name}")
+        log(f"lm {name}: {time.perf_counter() - t_model:.1f} s for the "
+            f"model")
+        out[name] = {"flash": f_pre}
+        del params, prompt, generated, dec, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lm-families: phase 31 took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def small_reference_check(torch, dev) -> None:
@@ -3228,13 +3694,20 @@ def main() -> None:
     log(f"solver family: phases 14-19 took {t_family:.1f} s (the SAFS "
         f"image phase between them excluded)")
 
-    rows.append(flash_phase(torch, timer, dev))
+    flash_rows = flash_phase(torch, timer, dev)
+    rows += flash_rows
     launches = serve(torch, dev, rows, card_line)
-    rows[-1]["launches"] = launches["flash_attention"]
+    flash_rows[0]["launches"] = launches["flash_attention"]
+    families = lm_families_phase(torch, dev, card_line)   # phase 31
+    # the d = 80 row's launches: hubert's forward (one per layer)
+    flash_rows[1]["launches"] = families["hubert-xlarge"]["flash"]
     for r in rows:      # the launches at each row's width in phases 29, 30a
-        r["serve_launches"] = serve_launches(r["name"], *serve_counts)
+        r["serve_launches"] = serve_launches(
+            r["name"], serve_counts[0],
+            {**serve_counts[1], "flash_attention_d80": 0})
         r["dist_launches"] = serve_launches(r["name"], dist_widths, {
-            "spmm_blocksparse_bf16": 0, "flash_attention": 0})
+            "spmm_blocksparse_bf16": 0, "flash_attention": 0,
+            "flash_attention_d80": 0})
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,34 +1,47 @@
-"""Config registry of the port (copy of `repro.configs`, yi-9b only).
+"""Config registry of the port: the reference's ten architectures and the
+paper's own graph configs (copies of `repro.configs`).
 
-The LM side of the port runs dense GQA models so far. The reference's
-other architectures need layers the port does not have yet (MoE, SSM,
-RG-LRU, sliding-window and cross-attention, audio and patch frontends):
-`get` and `reduced` raise `NotImplementedError` for them, naming
-ROADMAP.md queue 1 item 7.
+`ShapeConfig`, `SHAPES` and `shape_applicable` (the dry-run's input
+shapes) wait for the compile-analysis tooling, ROADMAP.md queue 1 item 8.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.configs import flasheigen
+from repro_torch.configs.arctic_480b import CONFIG as arctic_480b
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.grok_1_314b import CONFIG as grok_1_314b
+from repro_torch.configs.h2o_danube_3_4b import CONFIG as h2o_danube_3_4b
+from repro_torch.configs.hubert_xlarge import CONFIG as hubert_xlarge
+from repro_torch.configs.llama_3_2_vision_90b import \
+    CONFIG as llama_3_2_vision_90b
+from repro_torch.configs.mamba2_780m import CONFIG as mamba2_780m
+from repro_torch.configs.mistral_large_123b import \
+    CONFIG as mistral_large_123b
+from repro_torch.configs.qwen2_1_5b import CONFIG as qwen2_1_5b
+from repro_torch.configs.recurrentgemma_2b import CONFIG as recurrentgemma_2b
 from repro_torch.configs.yi_9b import CONFIG as yi_9b
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in [yi_9b]}
+ARCHS: dict[str, ArchConfig] = {
+    c.name: c for c in [
+        grok_1_314b, arctic_480b, hubert_xlarge, llama_3_2_vision_90b,
+        yi_9b, qwen2_1_5b, h2o_danube_3_4b, mistral_large_123b,
+        recurrentgemma_2b, mamba2_780m,
+    ]
+}
+
+GRAPHS = flasheigen.GRAPHS
 
 
 def get(name: str) -> ArchConfig:
-    if name not in ARCHS:
-        raise NotImplementedError(
-            f"config {name!r} is not ported: the port runs "
-            f"{sorted(ARCHS)}; the other architectures' layers are "
-            f"ROADMAP.md queue 1 item 7")
     return ARCHS[name]
 
 
 def reduced(name: str) -> ArchConfig:
     """Smoke-test-scale config of the same family (the reference's rule,
     `repro.configs.reduced`, field for field)."""
-    c = get(name)
+    c = ARCHS[name]
     pat = len(c.pattern)
     kv = max(1, min(c.n_kv_heads, 2))
     heads = max(kv, 4 - (4 % kv))
@@ -44,7 +57,7 @@ def reduced(name: str) -> ArchConfig:
         moe_d_ff=0 if c.moe_d_ff == 0 else 96,
         vocab_size=256,
         n_experts=0 if c.n_experts == 0 else 4,
-        capacity_factor=8.0,
+        capacity_factor=8.0,   # no token dropping at smoke scale
         window=32,
         ssm_state=0 if c.ssm_state == 0 else 16,
         ssm_head_dim=16,
@@ -57,4 +70,4 @@ def reduced(name: str) -> ArchConfig:
     )
 
 
-__all__ = ["ArchConfig", "ARCHS", "get", "reduced"]
+__all__ = ["ArchConfig", "ARCHS", "GRAPHS", "get", "reduced"]

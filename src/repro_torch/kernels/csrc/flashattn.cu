@@ -39,7 +39,9 @@
 //     per call from the strides, with 64-column boxes and the 128-byte
 //     swizzle that the wgmma descriptors name; rows past Sq or Sk and
 //     columns past d land as zeros, so head dims 16 and 32 share the
-//     64-column instantiation;
+//     64-column instantiation and 80 (hubert's) the 128-column one: its
+//     second box holds columns 64-79 and 48 zero columns, which add
+//     nothing to S, and the PV product's columns past d are never stored;
 //   * S = Q K^T by wgmma m64n128k16 with both operands in shared memory
 //     (K-major); the products of bf16 values are exact in float32;
 //   * the online softmax runs on the accumulator fragment in registers:
@@ -56,7 +58,10 @@
 //     which compares the two in a build of its own; the library never
 //     holds it. The denominator sums the float32 weights.
 //
-// float32 route (flash_attention_kernel): the products on the CUDA cores.
+// float32 route (flash_attention_kernel): the products on the CUDA cores,
+// instantiated at d = 16, 32, 64, 80 and 128 (any multiple of 16 fits:
+// a thread owns d/16 output columns tx + 16 c, and the float4 reads go
+// along the query rows, not along d).
 // 64 query rows by 64 keys per step, 256 threads as a 16 x 16 grid: a
 // thread owns 4 query rows and 4 score columns (tx + 16 j), and the same 4
 // rows by d/16 output columns (tx + 16 c). Q (once), then K (transposed),
@@ -786,7 +791,7 @@ void unpack_strides(const long long* strides, Strides* out[4]) {
 // addressed by its (batch, head, sequence) strides in elements, in this
 // order in `strides` (a host array of 12): q, k, v, o. The last dim is
 // contiguous. The caller guarantees B, H, Hkv, Sq, Sk >= 1, H % Hkv == 0,
-// d in {16, 32, 64, 128}.
+// d in {16, 32, 64, 80, 128}.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          const void* v, void* o,
                                          const long long* strides, int batch,
@@ -815,6 +820,7 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k,
     case 16: return static_cast<int>(launch_f32<16>(p, s));
     case 32: return static_cast<int>(launch_f32<32>(p, s));
     case 64: return static_cast<int>(launch_f32<64>(p, s));
+    case 80: return static_cast<int>(launch_f32<80>(p, s));
     case 128: return static_cast<int>(launch_f32<128>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,7 +3,8 @@
 
 q (B, H, Sq, d), k/v (B, Hkv, Sk, d) with H % Hkv == 0 (grouped-query
 attention: head h reads KV head h // (H / Hkv)), all float32 or all bf16,
-d in HEAD_DIMS. Any strides with a contiguous last dim: the kernel reads
+d in HEAD_DIMS (80 is hubert-xlarge's; the bf16 kernel runs it on 128
+columns, TMA filling the last 48 with zeros). Any strides with a contiguous last dim: the kernel reads
 strided views, so the model passes its (B, S, H, d) projections without a
 copy. The output is (B, H, Sq, d) in q's dtype, laid out as a (B, Sq, H, d)
 tensor, so that `out.transpose(1, 2)` is contiguous. Any Sq and Sk; causal
@@ -28,8 +29,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import require_cuda_float
 
 LAUNCHES = 0   # kernel launches by this process (chip_smoke reads it)
+LAUNCHES_BY_D: dict[int, int] = {}   # those of them by head dim
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's head dims
 # how the bf16 kernel feeds the weights P to the PV product (PERF.md)
 PV_DESIGN = ("P split into bf16 hi + lo, two PV wgmmas per 16 keys "
              "(m64nNk16, A from registers)")
@@ -40,6 +42,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global LAUNCHES
     out, launched = launch_with(_build.lib, q, k, v, causal=causal)
     LAUNCHES += launched
+    if launched:
+        d = q.shape[-1]
+        LAUNCHES_BY_D[d] = LAUNCHES_BY_D.get(d, 0) + 1
     return out
 
 

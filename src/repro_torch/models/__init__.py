@@ -1,3 +1,3 @@
-"""Decoder LM (port of `repro.models`, the dense GQA subset): modules,
-attention through the flash kernel, transformer prefill/decode, and the
-prefill/decode step builders."""
+"""The LM side (port of `repro.models`): modules, attention through the
+flash kernel, MoE, SSD and RG-LRU layers, transformer prefill/decode for
+every layer kind and frontend, and the prefill/decode step builders."""

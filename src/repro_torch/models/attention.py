@@ -7,15 +7,17 @@ Routing in `attn_forward`:
   CUDA tensor launches the kernel, a CPU tensor takes its plain version.
   Query head h reads KV head h // G inside the kernel; K and V are never
   repeated in memory, and the (B, S, K, G, hd) projections go in as
-  strided views.
-- the reference's q-chunked scan above `Q_CHUNK` tokens is not ported:
-  it exists only to bound the (chunk × S) score memory, and the kernel
-  never builds the score matrix.
-- sliding-window and cross attention, and `attn_decode` (one query token
-  against the cache), stay plain PyTorch in `_attend`, as in the
-  reference, which runs no kernel there either. Cross-attention decode
-  (`precompute_cross_kv`) waits for the cross-attention layers (ROADMAP.md
-  queue 1 item 7).
+  strided views. The kernel never builds the score matrix, so these
+  kinds need no query chunks.
+- sliding-window and cross attention stay plain PyTorch in `_attend`, as
+  in the reference, which runs no kernel there either. `_attend` builds
+  (B, K, G, Sq, Sk) float32 scores, so above `Q_CHUNK` query rows it
+  runs over chunks of Q_CHUNK rows in a Python loop (the reference's
+  `lax.scan`); rows are independent, so the result equals the unchunked
+  form. As in the reference, a length above Q_CHUNK must be a multiple
+  of it.
+- `attn_decode` (one query token against the ring-buffer cache, or
+  against the encoder's keys and values for "cross") is plain PyTorch.
 
 Numerics: `_attend` rounds the softmax weights to v's dtype before the PV
 product, as the reference does; the flash path keeps them float32, as the
@@ -34,9 +36,13 @@ from repro_torch.models.modules import (apply_linear, apply_rope,
                                         init_linear, rope_freqs)
 
 NEG_INF = -1e30
+Q_CHUNK = 1024          # plain attention runs in query chunks above this
 
 
-def init_attn(gen, cfg, *, lead: tuple = ()):
+def init_attn(gen, cfg, *, cross: bool = False, lead: tuple = ()):
+    """The four projections; a cross-attention layer has the same leaves
+    (its keys and values project the encoder's states)."""
+    del cross
     hd = cfg.hd
     return {
         "wq": init_linear(gen, cfg, cfg.d_model, cfg.n_heads * hd,
@@ -72,11 +78,11 @@ def _attend(q, k, v, mask):
     return torch.einsum("bkgqs,bskd->bqkgd", w, v)
 
 
-def _mask(kind: str, sq: int, sk: int, *, window: int = 0,
-          device=None) -> torch.Tensor | None:
+def _mask(kind: str, sq: int, sk: int, *, q_offset: int = 0,
+          window: int = 0, device=None) -> torch.Tensor | None:
     if kind == "none":
         return None
-    qi = torch.arange(sq, device=device)[:, None]
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
     ki = torch.arange(sk, device=device)[None, :]
     m = qi >= ki
     if kind == "swa":
@@ -107,13 +113,30 @@ def _attn_forward_kv(cfg, p, x, positions, *, kind: str = "causal",
             k.transpose(1, 2), v.transpose(1, 2),
             causal=(kind == "causal")).transpose(1, 2)
     elif kind in ("swa", "cross"):
-        mkind = "swa" if kind == "swa" else "none"
-        out = _attend(q, k, v, _mask(mkind, s, k.shape[1],
-                                     window=cfg.window, device=x.device))
+        out = _attend_chunked(cfg, q, k, v, "swa" if kind == "swa"
+                              else "none")
     else:
         raise ValueError(f"unknown attention kind {kind!r}")
     out = out.reshape(b, s, cfg.n_heads * cfg.hd)
     return apply_linear(p["wo"], out), k, v
+
+
+def _attend_chunked(cfg, q, k, v, mkind: str) -> torch.Tensor:
+    """`_attend` over the whole sequence, in chunks of Q_CHUNK query rows
+    above Q_CHUNK (each chunk's mask offset by its first row)."""
+    s, sk = q.shape[1], k.shape[1]
+    if s <= Q_CHUNK:
+        return _attend(q, k, v, _mask(mkind, s, sk, window=cfg.window,
+                                      device=q.device))
+    if s % Q_CHUNK:
+        raise ValueError(f"plain attention over {s} query rows: above "
+                         f"Q_CHUNK = {Q_CHUNK} the length must be a "
+                         f"multiple of it")
+    return torch.cat([
+        _attend(q[:, i:i + Q_CHUNK], k, v,
+                _mask(mkind, Q_CHUNK, sk, q_offset=i, window=cfg.window,
+                      device=q.device))
+        for i in range(0, s, Q_CHUNK)], dim=1)
 
 
 def attn_forward(cfg, p, x, positions, *, kind: str = "causal",
@@ -140,14 +163,22 @@ def init_kv_cache(cfg, batch: int, length: int, dtype, *, device=None,
     }
 
 
-def attn_decode(cfg, p, x, cache, pos: int, *, kind: str = "causal"):
-    """One-token self-attention decode (kind causal or swa). x (B,1,D); pos
-    the token's position (an int). Writes the new key and value into the
-    ring-buffer `cache` in place (the reference returns an updated copy) and
-    returns (out, cache)."""
+def attn_decode(cfg, p, x, cache, pos: int, *, kind: str = "causal",
+                encoder_kv: tuple | None = None):
+    """One-token decode. x (B,1,D); pos the token's position (an int).
+    kind causal or swa: writes the new key and value into the ring-buffer
+    `cache` in place (the reference returns an updated copy); kind cross:
+    attends to `encoder_kv`, the (k, v) of `precompute_cross_kv`, and
+    leaves `cache` as it is. Returns (out, cache)."""
     b = x.shape[0]
-    pos = int(pos)
     q = apply_linear(p["wq"], x)
+    if kind == "cross":
+        k, v = encoder_kv
+        q = q.reshape(b, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                      cfg.hd)
+        out = _attend(q, k, v, None)
+        return apply_linear(p["wo"], out.reshape(b, 1, -1)), cache
+    pos = int(pos)
     kn = apply_linear(p["wk"], x)
     vn = apply_linear(p["wv"], x)
     q, kn, vn = _split_heads(cfg, q, kn, vn)
@@ -167,3 +198,13 @@ def attn_decode(cfg, p, x, cache, pos: int, *, kind: str = "causal"):
     out = _attend(q, cache["k"], cache["v"], mask[None, None, None, None, :])
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
     return apply_linear(p["wo"], out), cache
+
+
+def precompute_cross_kv(cfg, p, encoder: torch.Tensor):
+    """The encoder's keys and values for cross-attention decode, (B, Sk,
+    K, hd) each (no RoPE)."""
+    k = apply_linear(p["wk"], encoder)
+    v = apply_linear(p["wv"], encoder)
+    b, sk = k.shape[:2]
+    return (k.reshape(b, sk, cfg.n_kv_heads, cfg.hd),
+            v.reshape(b, sk, cfg.n_kv_heads, cfg.hd))

@@ -26,13 +26,16 @@ def dtype_of(cfg) -> torch.dtype:
 
 def _normal(gen: torch.Generator, shape: tuple, std: float, dtype,
             lead: tuple = ()) -> torch.Tensor:
-    """N(0, std²) of shape lead + shape in `dtype`, drawn slice by slice
-    over `lead` in float32."""
+    """N(0, std²) of shape lead + shape in `dtype`, drawn in float32 one
+    matrix at a time: slice by slice over `lead` and over every dim of
+    `shape` but the last two (a layer's experts, (E, D, F), are drawn
+    expert by expert)."""
     out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
                       device=gen.device)
-    flat = out.view(-1, *shape)
+    tile = tuple(shape[-2:])
+    flat = out.view(-1, *tile)
     for i in range(flat.shape[0]):
-        flat[i].copy_(torch.randn(shape, generator=gen, device=gen.device,
+        flat[i].copy_(torch.randn(tile, generator=gen, device=gen.device,
                                   dtype=torch.float32) * std)
     return out
 

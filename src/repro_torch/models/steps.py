@@ -1,7 +1,8 @@
 """prefill_step / decode_step builders (port of `repro.models.steps`).
 
-Each builder returns a plain function of explicit state. `build_train_step`
-and `init_all` wait for the optimizer port (ROADMAP.md queue 1 item 7).
+Each builder returns a plain function of explicit state. `build_train_step`,
+`make_batch_specs` and `init_all` wait for the optimizer and training
+port (ROADMAP.md queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -13,14 +14,18 @@ from repro_torch.models.modules import lm_logits
 def build_prefill_step(cfg: ArchConfig, *, device=None):
     """(params, batch) → logits f32: (B, S, V), or (B, 1, V) with
     cfg.prefill_last_only (serving samples only the last position, so the
-    vocab head need not project every position)."""
+    vocab head need not project every position). The batch holds
+    "tokens", or "frames" (B, S, D) for an audio frontend, and
+    "image_embeds" (B, n_img, D) for a patch frontend."""
 
     def prefill_step(params, batch):
-        tokens = batch["tokens"]
+        enc = batch.get("image_embeds")
+        inp = (batch["frames"] if cfg.frontend == "audio"
+               else batch["tokens"])
         if cfg.prefill_last_only and cfg.decoder:
-            h = tf.forward(params, cfg, tokens, device=device)
+            h = tf.forward(params, cfg, inp, encoder=enc, device=device)
             return lm_logits(cfg, params, h[:, -1:])
-        return tf.logits_fn(params, cfg, tokens, device=device)
+        return tf.logits_fn(params, cfg, inp, encoder=enc, device=device)
 
     return prefill_step
 

@@ -1,20 +1,29 @@
-"""Config-driven model assembly (port of `repro.models.transformer`, the
-dense subset): init, full forward, prefill with a KV cache, and decode.
+"""Config-driven model assembly (port of `repro.models.transformer`): init,
+full forward, prefill with a decode cache, and decode, for every layer
+kind and frontend of the reference.
+
+  pattern elements: attn | swa | cross | ssm | rglru
+  families: dense GQA (yi, qwen2, mistral-large, h2o-danube-SWA),
+            MoE (grok-1, arctic + dense residual), encoder-only audio
+            (hubert), VLM cross-attn (llama-3.2-vision), hybrid RG-LRU
+            (recurrentgemma), SSD (mamba2).
 
 Parameters keep the reference's layout: `params["stack"]["l{i}"]` leaves
 carry a leading `n_super` axis (one slice per repetition of cfg.pattern),
-remainder layers sit in `params["rem"]`. `jax.lax.scan` over the stack
-becomes a Python loop indexing that axis (views, no copies). There is no
-remat: the port runs inference only.
+remainder layers sit in `params["rem"]` (layer i of the remainder has
+kind `cfg.pattern[i]`). `jax.lax.scan` over the stack becomes a Python
+loop indexing that axis (views, no copies). There is no remat: the port
+runs inference only.
 
-Only dense attention layers are ported: the pattern element "attn" with
-an MLP. Sliding-window, cross-attention, SSM and RG-LRU layers, MoE FFNs
-(`n_experts > 0`) and the audio/patch frontends raise
-`NotImplementedError` (ROADMAP.md queue 1 item 7).
+Frontends are stubs, as in the reference: an audio model takes frame
+embeddings (B, S, D) through `embed.in_proj`, a patch model takes patch
+embeddings (B, n_img, D) as the cross-attention layers' `encoder`. Both
+are cast to the parameter dtype.
 
-Entry points take token ids as tensors or array-likes and run where the
-caller says: on `device` when one is given, else on the device of a token
-tensor, else on the CUDA card, raising when there is none.
+Entry points take token ids, frames or patch embeddings as tensors or
+array-likes and run where the caller says: on `device` when one is
+given, else on the device of an input tensor, else on the CUDA card,
+raising when there is none.
 """
 from __future__ import annotations
 
@@ -25,31 +34,23 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as att
-from repro_torch.models.modules import (apply_mlp, apply_norm, cross_entropy,
-                                        dtype_of, embed_tokens,
-                                        init_embedding, init_linear,
-                                        init_mlp, init_norm, lm_logits)
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rg
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.modules import (apply_linear, apply_mlp, apply_norm,
+                                        cross_entropy, dtype_of,
+                                        embed_tokens, init_embedding,
+                                        init_linear, init_mlp, init_norm,
+                                        lm_logits)
 
-_TODO = "is not ported yet (ROADMAP.md queue 1 item 7)"
-
-
-def _require_dense(cfg: ArchConfig, encoder=None) -> None:
-    for kind in cfg.pattern:
-        if kind != "attn":
-            raise NotImplementedError(f"layer kind {kind!r} {_TODO}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"MoE FFN (n_experts={cfg.n_experts}) "
-                                  f"{_TODO}")
-    if cfg.frontend is not None or encoder is not None:
-        raise NotImplementedError(f"frontend {cfg.frontend!r} / encoder "
-                                  f"inputs {_TODO}")
-
-
-def _tokens(tokens, device) -> torch.Tensor:
-    """Token ids on the device the call runs on."""
-    if device is None and isinstance(tokens, torch.Tensor):
-        return tokens
-    return torch.as_tensor(tokens, device=resolve_device(device))
+def _on(x, device, dtype=None) -> torch.Tensor:
+    """An input on the device the call runs on (`device`, else the
+    tensor's own, else the card), in `dtype` when one is given."""
+    if device is None and isinstance(x, torch.Tensor):
+        t = x
+    else:
+        t = torch.as_tensor(x, device=resolve_device(device))
+    return t if dtype is None else t.to(dtype)
 
 
 def _layer(tree, i: int):
@@ -59,16 +60,32 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _moe(cfg, kind: str) -> bool:
+    return bool(cfg.n_experts) and kind in ("attn", "swa")
+
+
 # ---------------------------------------------------------------- layer init
-def _init_layer(gen, cfg: ArchConfig, *, lead: tuple = ()):
-    """One dense layer: attention and, with d_ff > 0, an MLP."""
+def _init_layer(gen, cfg: ArchConfig, kind: str, *, lead: tuple = ()):
+    """One layer of `kind`: its mixer and, but for SSM layers and with
+    d_ff > 0, an FFN (MoE on attn/swa layers of an MoE config)."""
     p: dict[str, Any] = {
-        "norm1": init_norm(cfg, cfg.d_model, device=gen.device, lead=lead),
-        "attn": att.init_attn(gen, cfg, lead=lead)}
-    if cfg.d_ff > 0:
+        "norm1": init_norm(cfg, cfg.d_model, device=gen.device, lead=lead)}
+    if kind in ("attn", "swa", "cross"):
+        p["attn"] = att.init_attn(gen, cfg, cross=(kind == "cross"),
+                                  lead=lead)
+    elif kind == "ssm":
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, lead=lead)
+    elif kind == "rglru":
+        p["rec"] = rg.init_rglru(gen, cfg, lead=lead)
+    else:
+        raise ValueError(kind)
+    if kind != "ssm" and cfg.d_ff > 0:
         p["norm2"] = init_norm(cfg, cfg.d_model, device=gen.device,
                                lead=lead)
-        p["ffn"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, lead=lead)
+        if _moe(cfg, kind):
+            p["ffn"] = moe_mod.init_moe(gen, cfg, lead=lead)
+        else:
+            p["ffn"] = init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, lead=lead)
     return p
 
 
@@ -78,34 +95,61 @@ def _rcast(cfg, y):
     return y.to(dtype_of(cfg)) if cfg.bf16_residual else y
 
 
-def _apply_ffn(cfg, p, x):
+def _apply_ffn(cfg, p, kind, x):
     h = apply_norm(cfg, p["norm2"], x)
+    if _moe(cfg, kind):
+        return x + _rcast(cfg, moe_mod.moe_forward(cfg, p["ffn"], h))
     return x + _rcast(cfg, apply_mlp(cfg, p["ffn"], h))
 
 
-def _apply_layer(cfg, p, x, positions):
+def _self_kind(cfg, kind: str) -> str:
+    """The attention kind of a self-attention layer in the full forward."""
+    if kind == "swa":
+        return "swa"
+    return "causal" if cfg.causal else "none"
+
+
+def _apply_layer(cfg, p, kind, x, positions, encoder):
     h = apply_norm(cfg, p["norm1"], x)
-    a = att.attn_forward(cfg, p["attn"], h, positions,
-                         kind=("causal" if cfg.causal else "none"))
-    x = x + _rcast(cfg, a)
+    if kind in ("attn", "swa"):
+        x = x + _rcast(cfg, att.attn_forward(cfg, p["attn"], h, positions,
+                                             kind=_self_kind(cfg, kind)))
+    elif kind == "cross":
+        x = x + _rcast(cfg, att.attn_forward(cfg, p["attn"], h, positions,
+                                             kind="cross", encoder=encoder))
+    elif kind == "ssm":
+        return x + _rcast(cfg, ssm_mod.ssm_forward(cfg, p["ssm"], h))
+    elif kind == "rglru":
+        x = x + _rcast(cfg, rg.rglru_forward(cfg, p["rec"], h))
+    else:
+        raise ValueError(kind)
     if "ffn" in p:
-        x = _apply_ffn(cfg, p, x)
+        x = _apply_ffn(cfg, p, kind, x)
     return x
 
 
 # ---------------------------------------------------------------- model init
 def init_model(seed: int, cfg: ArchConfig, *, device=None):
     """Random parameters in the reference's layout and distributions:
-    N(0, 1/d_in) linears, N(0, 0.02²) embeddings, unit norm scales, all in
-    cfg.param_dtype, drawn on the device from a generator seeded with
-    `seed`."""
-    _require_dense(cfg)
+    N(0, 1/d_in) linears, N(0, 0.02²) embeddings, unit norm scales, the
+    SSM's and RG-LRU's constants as the reference sets them, all in
+    cfg.param_dtype but the float32 leaves the reference keeps float32
+    (`a_log`, `dt_bias`, `d_skip`, `lam`); drawn on the device from a
+    generator seeded with `seed`."""
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-    params: dict[str, Any] = {"embed": init_embedding(gen, cfg)}
+    params: dict[str, Any] = {}
+    if cfg.frontend == "audio":
+        # frame embeddings come in directly; a linear stands in for the
+        # stubbed conv feature extractor's final projection
+        params["embed"] = {"in_proj": init_linear(gen, cfg, cfg.d_model,
+                                                  cfg.d_model)}
+    else:
+        params["embed"] = init_embedding(gen, cfg)
     params["stack"] = {
-        f"l{i}": _init_layer(gen, cfg, lead=(cfg.n_super,))
-        for i in range(len(cfg.pattern))}
-    params["rem"] = [_init_layer(gen, cfg) for _ in range(cfg.n_remainder)]
+        f"l{i}": _init_layer(gen, cfg, kind, lead=(cfg.n_super,))
+        for i, kind in enumerate(cfg.pattern)}
+    params["rem"] = [_init_layer(gen, cfg, cfg.pattern[i])
+                     for i in range(cfg.n_remainder)]
     params["final_norm"] = init_norm(cfg, cfg.d_model, device=gen.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, cfg, cfg.d_model,
@@ -113,24 +157,44 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None):
     return params
 
 
-def _layers(params, cfg):
-    """Each layer's params in order: the stack, then the remainder."""
+def _layers(tree, cfg):
+    """(kind, each layer's subtree) in order: the stack, then the
+    remainder. Over params or a cache (views into stacked tensors)."""
     for n in range(cfg.n_super):
-        sp = _layer(params["stack"], n)
-        for i in range(len(cfg.pattern)):
-            yield sp[f"l{i}"]
-    yield from params["rem"]
+        sp = _layer(tree["stack"], n)
+        for i, kind in enumerate(cfg.pattern):
+            yield kind, sp[f"l{i}"]
+    for i, p in enumerate(tree["rem"]):
+        yield cfg.pattern[i], p
+
+
+def _embed(params, cfg, inputs, device) -> torch.Tensor:
+    """Token ids (B, S) through the embedding table, or audio frames
+    (B, S, D) through the frontend's input projection."""
+    if cfg.frontend == "audio":
+        return apply_linear(params["embed"]["in_proj"],
+                            _on(inputs, device, dtype_of(cfg)))
+    return embed_tokens(params["embed"], _on(inputs, device))
+
+
+def _encoder(cfg, encoder, device, like: torch.Tensor):
+    if encoder is None:
+        return None
+    return _on(encoder, device if device is not None else like.device,
+               dtype_of(cfg))
 
 
 # ---------------------------------------------------------------- forward
 def forward(params, cfg: ArchConfig, inputs, *, encoder=None, device=None):
-    """inputs: int tokens (B,S). Returns final hidden states (B,S,D)."""
-    _require_dense(cfg, encoder)
-    x = embed_tokens(params["embed"], _tokens(inputs, device))
+    """inputs: int tokens (B,S), or frame embeddings (B,S,D) for audio
+    frontends; encoder: patch embeddings (B,n_img,D) for cross layers.
+    Returns final hidden states (B,S,D)."""
+    x = _embed(params, cfg, inputs, device)
+    encoder = _encoder(cfg, encoder, device, x)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
-    for p in _layers(params, cfg):
-        x = _apply_layer(cfg, p, x, positions)
+    for kind, p in _layers(params, cfg):
+        x = _apply_layer(cfg, p, kind, x, positions, encoder)
     return apply_norm(cfg, params["final_norm"], x)
 
 
@@ -141,8 +205,10 @@ def logits_fn(params, cfg, inputs, *, encoder=None, device=None):
 
 def loss_fn(params, cfg, batch, *, device=None):
     """Mean next-token cross entropy (forward only; no gradients yet)."""
-    logits = logits_fn(params, cfg, batch["tokens"],
-                       encoder=batch.get("image_embeds"), device=device)
+    inp = batch.get("frames") if cfg.frontend == "audio" else \
+        batch["tokens"]
+    logits = logits_fn(params, cfg, inp, encoder=batch.get("image_embeds"),
+                       device=device)
     targets = torch.as_tensor(batch["targets"], device=logits.device)
     return cross_entropy(logits, targets)
 
@@ -154,77 +220,148 @@ def _cache_len(cfg, kind: str, seq_len: int) -> int:
     return seq_len
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *, device=None):
-    """Decode cache: per pattern position, stacked over super-layers."""
-    _require_dense(cfg)
-    dev = resolve_device(device)
+def _init_layer_cache(cfg, kind: str, batch: int, seq_len: int, nimg: int,
+                      device, lead: tuple = ()):
     dt = dtype_of(cfg)
-    length = _cache_len(cfg, "attn", seq_len)
+    if kind in ("attn", "swa"):
+        return att.init_kv_cache(cfg, batch, _cache_len(cfg, kind, seq_len),
+                                 dt, device=device, lead=lead)
+    if kind == "cross":
+        shape = tuple(lead) + (batch, nimg, cfg.n_kv_heads, cfg.hd)
+        return {"ck": torch.zeros(shape, dtype=dt, device=device),
+                "cv": torch.zeros(shape, dtype=dt, device=device)}
+    if kind == "ssm":
+        return ssm_mod.init_ssm_cache(cfg, batch, dt, device=device,
+                                      lead=lead)
+    if kind == "rglru":
+        return rg.init_rglru_cache(cfg, batch, dt, device=device, lead=lead)
+    raise ValueError(kind)
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, *,
+               n_frontend_tokens: int | None = None, device=None):
+    """Decode cache: per pattern position, stacked over super-layers.
+    attn: a KV ring buffer of seq_len slots; swa: of min(seq_len, window);
+    cross: the encoder's keys and values (n_frontend_tokens of them,
+    cfg.n_frontend_tokens when None); ssm: conv tail and state; rglru:
+    conv tail and h."""
+    dev = resolve_device(device)
+    nimg = (n_frontend_tokens if n_frontend_tokens is not None
+            else cfg.n_frontend_tokens)
     return {
-        "stack": {f"l{i}": att.init_kv_cache(cfg, batch, length, dt,
-                                             device=dev, lead=(cfg.n_super,))
-                  for i in range(len(cfg.pattern))},
-        "rem": [att.init_kv_cache(cfg, batch, length, dt, device=dev)
-                for _ in range(cfg.n_remainder)],
+        "stack": {f"l{i}": _init_layer_cache(cfg, kind, batch, seq_len,
+                                             nimg, dev, (cfg.n_super,))
+                  for i, kind in enumerate(cfg.pattern)},
+        "rem": [_init_layer_cache(cfg, cfg.pattern[i], batch, seq_len, nimg,
+                                  dev) for i in range(cfg.n_remainder)],
     }
 
 
-def _cache_layers(cache, cfg):
-    """Each layer's cache (views into the stacked tensors), in the order
-    of `_layers`."""
-    for n in range(cfg.n_super):
-        sc = _layer(cache["stack"], n)
-        for i in range(len(cfg.pattern)):
-            yield sc[f"l{i}"]
-    yield from cache["rem"]
-
-
-def _apply_layer_decode(cfg, p, x, cache, pos):
+def _apply_layer_decode(cfg, p, kind, x, cache, pos):
     h = apply_norm(cfg, p["norm1"], x)
-    a, cache = att.attn_decode(cfg, p["attn"], h, cache, pos, kind="causal")
-    x = x + a
+    if kind in ("attn", "swa"):
+        a, _ = att.attn_decode(cfg, p["attn"], h, cache, pos,
+                               kind=("swa" if kind == "swa" else "causal"))
+        x = x + a
+    elif kind == "cross":
+        a, _ = att.attn_decode(cfg, p["attn"], h, None, pos, kind="cross",
+                               encoder_kv=(cache["ck"], cache["cv"]))
+        x = x + a
+    elif kind == "ssm":
+        y, _ = ssm_mod.ssm_decode(cfg, p["ssm"], h, cache)
+        return x + y
+    elif kind == "rglru":
+        y, _ = rg.rglru_decode(cfg, p["rec"], h, cache)
+        x = x + y
     if "ffn" in p:
-        x = _apply_ffn(cfg, p, x)
-    return x, cache
+        x = _apply_ffn(cfg, p, kind, x)
+    return x
+
+
+def _require_decoder(cfg) -> None:
+    if cfg.frontend == "audio" or not cfg.decoder:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no token "
+                         f"embedding and no decode step")
 
 
 def decode_step(params, cfg: ArchConfig, cache, token, pos, *, device=None):
     """One new token against the cache. token (B,1) int; pos its position.
     Returns (logits (B,1,V) f32, cache); the cache is updated in place."""
-    _require_dense(cfg)
-    x = embed_tokens(params["embed"], _tokens(token, device))
+    _require_decoder(cfg)
+    x = embed_tokens(params["embed"], _on(token, device))
     pos = int(pos)
-    for p, c in zip(_layers(params, cfg), _cache_layers(cache, cfg)):
-        x, _ = _apply_layer_decode(cfg, p, x, c, pos)
+    for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
+        x = _apply_layer_decode(cfg, p, kind, x, c, pos)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x), cache
 
 
 # ------------------------------------------------------- prefill with cache
+def _fill_kv(c, k, v, s: int):
+    """The last min(s, slots) keys and values (after RoPE) into a ring
+    buffer, each at slot position % slots."""
+    length = c["k"].shape[1]
+    keep = min(s, length)
+    slots = torch.arange(s - keep, s, device=k.device) % length
+    c["k"][:, slots] = k[:, s - keep:]
+    c["v"][:, slots] = v[:, s - keep:]
+    c["pos"][slots] = torch.arange(s - keep, s, dtype=torch.int32,
+                                   device=k.device)
+
+
+def _conv_tail(cfg, conv_in):
+    """The conv's last K-1 inputs, zeros before the first token (the
+    reference's slice, which would come out short for a prompt of fewer
+    than K-1 tokens)."""
+    k = cfg.ssm_conv - 1
+    return torch.nn.functional.pad(conv_in, (0, 0, k, 0))[:, -k:]
+
+
 def prefill_with_cache(params, cfg: ArchConfig, tokens, *, encoder=None,
                        cache_len: int | None = None, device=None):
     """Forward pass that also builds the decode cache. Returns (logits
-    (B,S,V) f32, cache with room for cache_len positions)."""
-    _require_dense(cfg, encoder)
-    tokens = _tokens(tokens, device)
+    (B,S,V) f32, cache with room for cache_len positions). Self-attention
+    layers run causal; cross layers attend to `encoder` (patch
+    embeddings) and keep its keys and values; SSM and RG-LRU layers keep
+    their final state and the conv's last K-1 inputs."""
+    _require_decoder(cfg)
+    tokens = _on(tokens, device)
     b, s = tokens.shape[0], tokens.shape[1]
     cache_len = cache_len or s
-    cache = init_cache(cfg, b, cache_len, device=tokens.device)
     x = embed_tokens(params["embed"], tokens)
+    encoder = _encoder(cfg, encoder, device, x)
+    cache = init_cache(cfg, b, cache_len,
+                       n_frontend_tokens=(encoder.shape[1]
+                                          if encoder is not None else 0),
+                       device=tokens.device)
     positions = torch.arange(s, dtype=torch.float32, device=x.device)
-    length = _cache_len(cfg, "attn", cache_len)
-    keep = min(s, length)
-    slots = torch.arange(s - keep, s, device=x.device) % length
-    for p, c in zip(_layers(params, cfg), _cache_layers(cache, cfg)):
+    dt = dtype_of(cfg)
+    for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
         h = apply_norm(cfg, p["norm1"], x)
-        a, k, v = att._attn_forward_kv(cfg, p["attn"], h, positions,
-                                       kind="causal")
-        c["k"][:, slots] = k[:, s - keep:]
-        c["v"][:, slots] = v[:, s - keep:]
-        c["pos"][slots] = torch.arange(s - keep, s, dtype=torch.int32,
-                                       device=x.device)
-        x = x + a
+        if kind in ("attn", "swa"):
+            a, k, v = att._attn_forward_kv(
+                cfg, p["attn"], h, positions,
+                kind=("swa" if kind == "swa" else "causal"))
+            _fill_kv(c, k, v, s)
+            x = x + a
+        elif kind == "cross":
+            a, k, v = att._attn_forward_kv(cfg, p["attn"], h, positions,
+                                           kind="cross", encoder=encoder)
+            c["ck"].copy_(k)
+            c["cv"].copy_(v)
+            x = x + a
+        elif kind == "ssm":
+            y, state, conv_in = ssm_mod._ssm_forward(cfg, p["ssm"], h)
+            c["conv"].copy_(_conv_tail(cfg, conv_in).to(dt))
+            c["state"].copy_(state)
+            x = x + y
+            continue                    # SSM layers have no FFN
+        elif kind == "rglru":
+            y, state, conv_in = rg._rglru_forward(cfg, p["rec"], h)
+            c["conv"].copy_(_conv_tail(cfg, conv_in).to(dt))
+            c["h"].copy_(state)
+            x = x + y
         if "ffn" in p:
-            x = _apply_ffn(cfg, p, x)
+            x = _apply_ffn(cfg, p, kind, x)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x), cache

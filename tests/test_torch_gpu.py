@@ -705,7 +705,7 @@ def _flash_err(got, q, k, v, causal):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 def test_flash_kernel_vs_plain_on_card(cuda, d, causal, dtype):
     """GQA (4 query heads on 2 KV heads), a ragged length (200 is not a
     multiple of the 64-row tiles) and Sq < Sk."""
@@ -746,6 +746,29 @@ def test_flash_bf16_tensor_cores_at_serve_length(cuda, causal):
     assert flashattn.LAUNCHES == before + 1
     assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
     assert _flash_err(got, q, k, v, causal) <= FLASH_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_at_hubert_head_dim(cuda, causal, dtype):
+    """d = 80 at hubert-xlarge's prefill shape, q (2, 16, 2048, 80): the
+    bf16 kernel runs it on 128 columns (TMA zero-fills 80-127), the
+    float32 kernel has an instantiation of its own. One launch each. The
+    output is laid out (B, S, H, 80), so a stored padded column would
+    overwrite the next head's first columns, and the comparison would
+    see it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_inputs(cuda, dtype, 2, 16, 16, 2048, 2048, 80,
+                            seed=80)
+    before = flashattn.LAUNCHES
+    at_80 = flashattn.LAUNCHES_BY_D.get(80, 0)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flashattn.LAUNCHES == before + 1
+    assert flashattn.LAUNCHES_BY_D[80] == at_80 + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _flash_err(got, q, k, v, causal) <= FLASH_TOL[dtype]
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
 
 
 @pytest.mark.gpu
@@ -792,9 +815,11 @@ def test_flash_kernel_reads_strided_views(cuda):
 
 @pytest.mark.gpu
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
-    q, k, v = _flash_inputs(cuda, torch.float32, 1, 2, 2, 64, 64, 80, seed=0)
-    with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q, k, v)
+    for d in (120, 256):      # danube's and recurrentgemma's (plain SWA)
+        q, k, v = _flash_inputs(cuda, torch.float32, 1, 2, 2, 64, 64, d,
+                                seed=0)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_attention(q, k, v)
     q, k, v = _flash_inputs(cuda, torch.float32, 1, 2, 2, 64, 64, 64, seed=0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.flash_attention(q.half(), k.half(), v.half())
@@ -828,6 +853,62 @@ def test_reduced_model_on_card_matches_cpu(cuda):
             lg, cache = tf.decode_step(params, cfg, cache, toks[:, t:t + 1],
                                        t, device=dev)
             steps.append(lg)
+        out[str(dev)] = [s.cpu() for s in steps]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "qwen2-1.5b", "h2o-danube-3-4b", "mistral-large-123b", "grok-1-314b",
+    "arctic-480b", "llama-3.2-vision-90b", "recurrentgemma-2b",
+    "mamba2-780m", "hubert-xlarge"])
+def test_reduced_family_on_card_matches_cpu(cuda, name):
+    """Each of the other nine architectures at its reduced size in
+    float32, the same weights on the card and on the CPU: a decoder's
+    prefill (+ patch embeddings for the VLM) and 4 decode steps, the
+    encoder's forward over frames; flash launched once per causal or
+    non-causal self-attention layer in the prefill or forward, never in
+    decode, and nowhere on the CPU."""
+    from repro_torch import configs
+    from repro_torch.convert import params_from_arrays
+    from repro_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.reduced(name)
+    cpu_params = tf.init_model(0, cfg, device="cpu")
+    gpu_params = params_from_arrays(_numpy_tree(cpu_params), device=cuda)
+    g = np.random.default_rng(6)
+    flash_layers = sum(k == "attn" for k in cfg.pattern) * cfg.n_super + \
+        sum(k == "attn" for k in cfg.pattern[:cfg.n_remainder])
+    enc = None
+    if cfg.frontend == "patch":
+        enc = g.standard_normal((2, cfg.n_frontend_tokens,
+                                 cfg.d_model)).astype(np.float32)
+    out = {}
+    for dev, params in (("cpu", cpu_params), (cuda, gpu_params)):
+        before = flashattn.LAUNCHES
+        if not cfg.decoder:
+            frames = np.random.default_rng(7).standard_normal(
+                (2, 40, cfg.d_model)).astype(np.float32)
+            out[str(dev)] = [tf.logits_fn(params, cfg, frames,
+                                          device=dev).cpu()]
+            assert flashattn.LAUNCHES - before == (
+                flash_layers if dev == cuda else 0)
+            continue
+        toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 44))
+        logits, cache = tf.prefill_with_cache(params, cfg, toks[:, :40],
+                                              encoder=enc, cache_len=44,
+                                              device=dev)
+        assert flashattn.LAUNCHES - before == (flash_layers if dev == cuda
+                                               else 0)
+        steps = [logits]
+        for t in range(40, 44):
+            lg, cache = tf.decode_step(params, cfg, cache, toks[:, t:t + 1],
+                                       t, device=dev)
+            steps.append(lg)
+        assert flashattn.LAUNCHES - before == (flash_layers if dev == cuda
+                                               else 0)
         out[str(dev)] = [s.cpu() for s in steps]
     for got, want in zip(out[str(cuda)], out["cpu"]):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,

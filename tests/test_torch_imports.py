@@ -31,7 +31,18 @@ def test_import_loads_no_jax_and_no_reference_module():
     for m in ("repro_torch.kernels.ops", "repro_torch.convert",
               "repro_torch.kernels.flashattn", "repro_torch.configs",
               "repro_torch.models", "repro_torch.models.transformer",
-              "repro_torch.models.steps", "repro_torch.safs.faults",
+              "repro_torch.models.steps", "repro_torch.models.moe",
+              "repro_torch.models.ssm", "repro_torch.models.rglru",
+              "repro_torch.configs.flasheigen",
+              "repro_torch.configs.grok_1_314b",
+              "repro_torch.configs.arctic_480b",
+              "repro_torch.configs.hubert_xlarge",
+              "repro_torch.configs.llama_3_2_vision_90b",
+              "repro_torch.configs.qwen2_1_5b",
+              "repro_torch.configs.h2o_danube_3_4b",
+              "repro_torch.configs.mistral_large_123b",
+              "repro_torch.configs.recurrentgemma_2b",
+              "repro_torch.configs.mamba2_780m", "repro_torch.safs.faults",
               "repro_torch.safs.pagefile", "repro_torch.safs.cache",
               "repro_torch.safs.prefetch", "repro_torch.safs.backend",
               "repro_torch.safs.scrub", "repro_torch.graphs.gio",
@@ -206,6 +217,35 @@ def test_model_entry_points_without_device_raise_without_cuda(monkeypatch):
                                           torch.zeros((1, 1), dtype=torch.int32),
                                           4)
     assert logits.device.type == out.device.type == "cpu"
+
+
+def test_frontend_entry_points_without_device_raise_without_cuda(
+        monkeypatch):
+    """Audio frames and patch embeddings given as arrays run nowhere
+    unless the caller names the CPU; CPU tensors are that request."""
+    from repro_torch import configs
+    from repro_torch.models import steps, transformer as tf
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    audio = configs.reduced("hubert-xlarge")
+    frames = np.zeros((1, 4, audio.d_model), np.float32)
+    params = tf.init_model(0, audio, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.logits_fn(params, audio, frames)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.build_prefill_step(audio)(params, {"frames": frames})
+    assert tf.logits_fn(params, audio, torch.from_numpy(frames)).device.type \
+        == "cpu"
+    vlm = configs.reduced("llama-3.2-vision-90b")
+    params = tf.init_model(0, vlm, device="cpu")
+    tokens = np.zeros((1, 4), np.int32)
+    patches = np.zeros((1, vlm.n_frontend_tokens, vlm.d_model), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tf.prefill_with_cache(params, vlm, tokens, encoder=patches)
+    logits, cache = tf.prefill_with_cache(params, vlm,
+                                          torch.from_numpy(tokens),
+                                          encoder=patches, cache_len=5)
+    assert logits.device.type == cache["stack"]["l4"]["ck"].device.type \
+        == "cpu"
 
 
 def test_ooc_lanczos_example_runs_on_the_cpu(tmp_path, capsys):
