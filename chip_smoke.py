@@ -282,11 +282,40 @@ The other LM families, after 13:
      split of one MoE layer's prefill into routing, dispatch, expert
      GEMMs and combine.
 
+Training, after 31:
+ 32. train. 32a, the flash backward (`csrc/flashattn_bwd.cu`) against
+     its plain version on the same inputs and against the float64
+     gradient of the exact forward (FLASH_BWD_TOL), bit-identical run to
+     run, at qwen2-1.5b's training layer, yi-9b's prefill shape, hubert's
+     d = 80 and a float32 shape; the forward's LSE against the plain one
+     and its O unchanged by storing LSE; the qwen2 and float32 shapes
+     timed with L2 flushed beside the plain backward, SDPA's backward
+     (the library row) and the bound. 32b, qwen2-1.5b cut to 2 layers at
+     full widths in float32 with remat: every leaf's gradient over one
+     sequence of 1,024 tokens on the card (kernels) against the host
+     CPU's (plain versions), and the flash launches (2 forward per layer
+     under remat, 1 backward). 32c, `train.trainer.train` on qwen2-1.5b
+     at its published size (bf16 weights, float32 AdamW moments, remat)
+     for 6 steps on the synthetic pipeline at 4 x 4,096 tokens in 2
+     microbatches, the counters zeroed just before and read after each
+     step: finite losses and grad norms, step 0's loss against `loss_fn`
+     without grad on the same weights and batch, flash launches per step
+     exactly layers x microbatches x 2 forward and layers x microbatches
+     backward; logged: the loss trajectory, median step seconds and
+     tokens/s, peak device memory, model flops per step and their share
+     of the bf16 peak, the final checkpoint (on /dev/shm when it has
+     room) with its bytes and seconds, and one more step profiled by
+     kind (GEMMs, flash forward, flash backward, optimizer, elementwise)
+     with its idle share. 32d, at 2 layers under deterministic
+     algorithms: [train 4] against [train 2, restore, train 2], every
+     leaf of (params, AdamWState) bit for bit.
+
 Then one JSON line of kernels (the four PR-15 rows, the nine width rows
-of 14, flash attention at yi-9b's shape and at hubert's head dim 80;
-each row's `serve_launches` the launches at its width in phase 29, its
-`dist_launches` those in phase 30a), the card line, and the final result
-line.
+of 14, flash attention at yi-9b's shape and at hubert's head dim 80, the
+flash backward at qwen2's training layer (its launches 32c's) and in
+float32 (its launches 32b's); each row's `serve_launches` the launches
+at its width in phase 29, its `dist_launches` those in phase 30a), the
+card line, and the final result line.
 """
 from __future__ import annotations
 
@@ -295,6 +324,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -433,6 +463,43 @@ MOE_GATE_PROMPT, MOE_GATE_DECODE = 256, 8
 # runs' bf16 residual streams differ by ~2^-8 relative, which moves
 # unit-variance router logits by ~0.004
 MOE_TIE_MARGIN = 0.05
+
+# training (phase 32). 32a: the flash backward at (name, (B, H, Hkv, S,
+# d), dtype, causal); the first row is qwen2-1.5b's training layer, the
+# last the float32 shape of 32b's layer
+FLASH_BWD_SHAPES = (
+    ("qwen2 training layer", (2, 12, 2, 4096, 128), "bfloat16", True),
+    ("yi-9b prefill", (4, 32, 4, 2048, 128), "bfloat16", True),
+    ("hubert d = 80", (2, 16, 16, 2048, 80), "bfloat16", False),
+    ("qwen2 layer float32", (1, 12, 2, 1024, 128), "float32", True),
+)
+# the backward against its plain version on the same inputs (the
+# kernel's O and LSE) and against the float64 gradient of the exact
+# forward, of the gradient's largest magnitude: float32 1e-5 both (sums
+# in another order); bf16 2^-7 against the plain version (the gradients
+# are rounded once to bf16 from float32 sums: 2^-9 to 2^-8 of a value)
+# and 2^-6 against float64 (D = rowsum(dO∘O) takes the bf16 O, whose
+# rounding the difference dP − D can bring near the size of dS)
+FLASH_BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -6)}
+# the forward's LSE against the plain one, absolute (log units; float32
+# sums of ~10^3 terms)
+FLASH_LSE_TOL = 1e-4
+# 32b: qwen2-1.5b cut to GRAD_LAYERS layers at full widths in float32, one
+# sequence of GRAD_TOKENS: each leaf's gradient on the card (kernels)
+# against the CPU's (plain versions), ‖Δ‖_F / ‖g_cpu‖_F ≤ GRAD_TOL (both
+# float32, sums in another order; the CPU tests see 6e-6 between the
+# packages' CPU paths)
+GRAD_LAYERS, GRAD_TOKENS, GRAD_TOL = 2, 1024, 1e-4
+# 32c: the trainer at full size: train_4k's sequence length, a global
+# batch of 4 in 2 microbatches, TRAIN_STEPS steps
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = "qwen2-1.5b", 4096, 4, 2
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP, TRAIN_SEED = 6, 3e-4, 2, 0
+# step 0's loss against loss_fn without grad on the same weights and
+# batch: one bf16 rounding of the loss's inputs (the two runs do the
+# same operations; the bound is the bf16 tolerance)
+TRAIN_LOSS_TOL = 2.0 ** -8
+# 32d: [train 4] against [train 2, restore, train 2] at RESUME_LAYERS
+RESUME_LAYERS = 2
 
 
 def fail(msg: str) -> None:
@@ -774,6 +841,8 @@ def zero_counters() -> None:
     for mod in (spmm_tile, gram, tsgemm, flashattn):
         mod.LAUNCHES = 0
     flashattn.LAUNCHES_BY_D.clear()
+    flashattn.BWD_LAUNCHES = 0
+    flashattn.BWD_LAUNCHES_BY_D.clear()
     spmm_tile.LAUNCHES_BF16 = 0
     spmm_tile.LAUNCHES_BY_K.clear()
     gram.LAUNCHES_BY_SHAPE.clear()
@@ -3575,6 +3644,401 @@ def lm_families_phase(torch, dev, card_line: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ training
+
+def flash_bwd_phase(torch, timer, dev) -> list:
+    """32a: the flash backward against its plain version and the float64
+    gradient at FLASH_BWD_SHAPES, bit-identical run to run, the forward's
+    LSE against the plain one and its O unchanged by storing LSE; the
+    first and last shapes timed (L2 flushed) beside the plain backward,
+    SDPA's backward and the bound. Returns their kernel rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flashattn
+    from repro_torch.kernels.flashattn_ref import (attention_ref_lse,
+                                                   flash_attention_bwd_ref)
+    gen = torch.Generator(device=dev).manual_seed(32)
+
+    def rel(got, want):
+        return float((got.double() - want.double()).abs().max()
+                     / want.double().abs().max().clamp_min(1e-30))
+
+    rows = []
+    for label, (b, h, hkv, s, d), dt, causal in FLASH_BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        # strided (B, S, H, d) views, as the model passes them
+        q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev)
+                   .to(dtype).transpose(1, 2) for n in (h, hkv, hkv))
+        do = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+        o, lse = flashattn.flash_attention_lse(q, k, v, causal=causal)
+        if not torch.equal(o, flashattn.flash_attention(q, k, v,
+                                                        causal=causal)):
+            fail(f"flash forward with LSE changed O at {label}")
+        lse_err = float((lse - attention_ref_lse(q, k, v, causal=causal)[1])
+                        .abs().max())
+        before = flashattn.BWD_LAUNCHES
+        got = flashattn.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal)
+        again = flashattn.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=causal)
+        if flashattn.BWD_LAUNCHES != before + 2:
+            fail(f"flash backward did not launch once per call at {label}")
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        plain = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float(),
+                                        causal=causal)
+        e_plain = [rel(x, y) for x, y in zip(got, plain)]
+        abs_err = max(float((x.double() - y.double()).abs().max())
+                      for x, y in zip(got, plain))
+        del plain
+        q6, k6, v6 = q.double(), k.double(), v.double()
+        o6, lse6 = attention_ref_lse(q6, k6, v6, causal=causal)
+        exact = flash_attention_bwd_ref(q6, k6, v6, o6, lse6, do.double(),
+                                        causal=causal)
+        e_exact = [rel(x, y) for x, y in zip(got, exact)]
+        del q6, k6, v6, o6, lse6, exact
+        torch.cuda.empty_cache()
+        tol_plain, tol_exact = FLASH_BWD_TOL[dt]
+        log(f"kernel flash_attention_bwd: {label} q {(b, h, s, d)} k/v "
+            f"{(b, hkv, s, d)} {dt} {'causal' if causal else 'not causal'}"
+            f" | rel err (dq, dk, dv) vs plain "
+            f"{', '.join(f'{e:.3e}' for e in e_plain)} (tol {tol_plain:g})"
+            f", vs float64 {', '.join(f'{e:.3e}' for e in e_exact)} (tol "
+            f"{tol_exact:g}), max abs err vs plain {abs_err:.3e} | LSE max "
+            f"abs err {lse_err:.3e} (tol {FLASH_LSE_TOL:g}), O unchanged "
+            f"with LSE on | bit-identical run to run: {same}")
+        if not (same and max(e_plain) <= tol_plain
+                and max(e_exact) <= tol_exact and lse_err <= FLASH_LSE_TOL):
+            fail(f"flash backward at {label} failed its gates")
+        if label in (FLASH_BWD_SHAPES[0][0], FLASH_BWD_SHAPES[-1][0]):
+            rows.append(_flash_bwd_row(torch, F, timer, flashattn,
+                                       flash_attention_bwd_ref, q, k, v, o,
+                                       lse, do, causal, dt, abs_err, label))
+        del q, k, v, do, o, lse, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _flash_bwd_row(torch, F, timer, flashattn, bwd_ref, q, k, v, o, lse, do,
+                   causal, dt, abs_err, label) -> dict:
+    """Times of the backward at one shape (L2 flushed) and its row."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    ms = timer.ms(lambda: flashattn.flash_attention_bwd(q, k, v, o, lse, do,
+                                                        causal=causal))
+    plain = timer.ms(lambda: bwd_ref(q, k, v, o, lse, do, causal=causal),
+                     reps=3)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                         enable_gqa=True)
+    lib_ms = timer.ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                  retain_graph=True))
+    del out, qs, ks, vs
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    flops = 10 * d * pairs                   # 5 products, 2 flop per MAC
+    size = q.element_size()
+    nbytes = (4 * b * h * s * d + 4 * b * hkv * s * d) * size + 4 * b * h * s
+    peak = BF16_FLOPS_PER_S if dt == "bfloat16" else F32_FLOPS_PER_S
+    bms, by = bound_ms(nbytes, flops, peak)
+    log(f"kernel flash_attention_bwd: {label} | {ms:.3f} ms = "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain:.3f} ms, library "
+        f"scaled_dot_product_attention backward {lib_ms:.3f} ms, bound "
+        f"{bms:.4f} ms ({by}, {dt} peak) | {flops:.3e} flop, {nbytes} bytes")
+    name = ("flash_attention_bwd" if dt == "bfloat16"
+            else "flash_attention_bwd_f32")
+    key = (d, dt)
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flashattn_bwd.cu",
+            "replaces": "src/repro/models/attention.py:48 (JAX's autodiff "
+                        "of _attend; no Pallas backward)",
+            "count": lambda: TRAIN_BWD_LAUNCHES.get(key, 0),
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+# backward launches of phase 32's runs by (head dim, dtype): 32c's trainer
+# (bf16) and 32b's card gradients (float32)
+TRAIN_BWD_LAUNCHES: dict = {}
+
+
+def _rel_fro(torch, got, want) -> float:
+    want = want.double()
+    return float((got.double() - want).norm()
+                 / want.norm().clamp_min(1e-12))
+
+
+def _grads(torch, tf, adamw, params, cfg, batch, device):
+    alias = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss = tf.loss_fn(alias, cfg, batch, device=device)
+    return loss.detach(), torch.autograd.grad(loss, adamw.tree_leaves(alias))
+
+
+def train_grad_phase(torch, dev) -> None:
+    """32b: qwen2-1.5b cut to GRAD_LAYERS layers at full widths in float32
+    (remat on), one sequence of GRAD_TOKENS: every leaf's gradient on the
+    card, through the kernels, against the host CPU's through the plain
+    versions; the card's flash launches counted."""
+    from repro_torch import configs
+    from repro_torch.kernels import flashattn
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=GRAD_LAYERS,
+                              param_dtype="float32")
+    g = np.random.default_rng(TRAIN_SEED)
+    batch = {k: g.integers(0, cfg.vocab_size, (1, GRAD_TOKENS)).astype(
+        np.int32) for k in ("tokens", "targets")}
+    params = tf.init_model(TRAIN_SEED, cfg, device="cpu")
+    l_cpu, g_cpu = _grads(torch, tf, adamw, params, cfg, batch, "cpu")
+    t_cpu = time.perf_counter() - t0
+    on_card = adamw.tree_map(lambda t: t.to(dev), params)
+    zero_counters()
+    l_dev, g_dev = _grads(torch, tf, adamw, on_card, cfg, batch, dev)
+    torch.cuda.synchronize()
+    fwd, bwd = flashattn.LAUNCHES, flashattn.BWD_LAUNCHES
+    TRAIN_BWD_LAUNCHES[(cfg.hd, "float32")] = bwd
+    errs = [_rel_fro(torch, a.cpu(), b) for a, b in zip(g_dev, g_cpu)]
+    worst = max(errs)
+    l_err = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    log(f"train grads: {TRAIN_ARCH} cut to {GRAD_LAYERS} layers at full "
+        f"widths, float32, remat on, 1 x {GRAD_TOKENS} tokens | loss card "
+        f"{float(l_dev):.6f} cpu {float(l_cpu):.6f} (rel {l_err:.2e}) | "
+        f"{len(errs)} leaves, worst relative Frobenius error "
+        f"{worst:.3e} (tol {GRAD_TOL:g}), median "
+        f"{statistics.median(errs):.3e} | flash launches forward {fwd} "
+        f"(want {2 * GRAD_LAYERS}: remat recomputes), backward {bwd} (want "
+        f"{GRAD_LAYERS}) | CPU side {t_cpu:.1f} s")
+    if not (worst <= GRAD_TOL and l_err <= GRAD_TOL
+            and (fwd, bwd) == (2 * GRAD_LAYERS, GRAD_LAYERS)):
+        fail("card gradients disagree with the CPU's, or the flash kernels "
+             "were not launched as counted")
+    del on_card, g_dev, g_cpu, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ckpt_root(nbytes: int) -> tuple[str, str]:
+    """A fresh directory for checkpoints of `nbytes` (twice that free):
+    under /dev/shm (memory) when it has room, else under the temporary
+    directory. Returns (path, which)."""
+    if os.path.isdir("/dev/shm") and \
+            shutil.disk_usage("/dev/shm").free > 2 * nbytes:
+        return tempfile.mkdtemp(prefix="repro_train_", dir="/dev/shm"), \
+            "/dev/shm"
+    return tempfile.mkdtemp(prefix="repro_train_"), tempfile.gettempdir()
+
+
+def train_model_flops(cfg, tokens: int, seq: int) -> float:
+    """Model flops of one training step (forward + backward, 3 x the
+    forward; remat's recompute not counted): 2 flop per weight of every
+    matrix product per token (layers and the vocab head), and the
+    attention products, 2 x 2 B H S^2 d / 2 per causal layer forward."""
+    d, hd = cfg.d_model, cfg.hd
+    layer = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2 + \
+        d * cfg.d_ff * (3 if cfg.glu else 2)
+    matmul = 2 * tokens * (cfg.n_layers * layer + d * cfg.vocab_size)
+    attn = cfg.n_layers * 2 * tokens * seq * cfg.n_heads * hd
+    return 3.0 * (matmul + attn)
+
+
+def train_breakdown(torch, step_fn, params, opt, batch) -> tuple:
+    """Device time by kind over one profiled training step (the optimizer
+    marked by a profiler range around `adamw.global_norm_clip` and
+    `adamw.update`), beside its wall time. Returns (params, opt)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.optim import adamw
+    saved = adamw.update, adamw.global_norm_clip
+
+    def marked(fn):
+        def call(*a, **kw):
+            with record_function("optimizer"):
+                return fn(*a, **kw)
+        return call
+
+    adamw.update, adamw.global_norm_clip = map(marked, saved)
+    kinds = {"flash_bwd": ("flash_bwd_",),
+             "flash_fwd": ("flash_attention_kernel", "flash_wgmma_kernel"),
+             "gemm": ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass"),
+             "memcpy": ("Memcpy", "Memset")}
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        adamw.update, adamw.global_norm_clip = saved
+    cats, counts, others = _device_ms_by_kind(
+        prof, kinds, label=lambda name: "range" if name == "optimizer"
+        else None)
+    cats.pop("range", None)
+    opt_ms = sum(e.device_time_total for e in prof.events()
+                 if e.name == "optimizer"
+                 and "CPU" in str(e.device_type)) / 1e3
+    cats["optimizer"] = opt_ms
+    cats["elementwise"] = cats.pop("other") - opt_ms
+    busy = sum(cats.values())
+    log(f"train breakdown (one profiled step): wall {wall:.1f} ms | device "
+        f"busy {busy:.1f} ms, idle share {1 - busy / wall:.3f} | device ms "
+        f"by kind {json.dumps({k: round(v, 2) for k, v in cats.items()})} | "
+        f"launches flash_fwd {counts['flash_fwd']}, flash_bwd "
+        f"{counts['flash_bwd']} (three kernels a call) | largest kernels "
+        f"outside gemm and flash (ms, count, name): "
+        + "; ".join(f"{ms:.2f}, {cnt}, {name}" for ms, cnt, name in others))
+    return params, opt
+
+
+def train_phase(torch, dev, card_line: str) -> None:
+    """32c: qwen2-1.5b at its published size trained TRAIN_STEPS steps
+    through `train.trainer.train` (bf16 weights, float32 moments, remat,
+    the synthetic pipeline at train_4k's length, TRAIN_BATCH in TRAIN_MB
+    microbatches), the launch counters zeroed just before and read after
+    every step; then one more step profiled by kind."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import flashattn
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import TrainConfig, train
+    t_phase = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=TRAIN_SEED)
+    batch0 = TokenPipeline(dcfg).batch(0)
+    rows = TRAIN_BATCH // TRAIN_MB
+    params = tf.init_model(TRAIN_SEED, cfg, device=dev)
+    with torch.no_grad():       # the serving forward, no LSE, no remat
+        loss0 = sum(float(tf.loss_fn(params, cfg, {
+            k: x[i * rows:(i + 1) * rows] for k, x in batch0.items()},
+            device=dev)) for i in range(TRAIN_MB)) / TRAIN_MB
+    n_params = sum(t.numel() for t in _leaves(params))
+    state_bytes = n_params * (2 + 8) + 4
+    del params
+    torch.cuda.empty_cache()
+    root, where = ckpt_root(state_bytes)
+    log(f"train: {TRAIN_ARCH} {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n_params} parameters "
+        f"{cfg.param_dtype}, remat {cfg.remat} | {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens a step in {TRAIN_MB} microbatches | "
+        f"checkpoints ({state_bytes} bytes of state) under {where}")
+    seen = []
+
+    def record(line: str) -> None:
+        if line.startswith("step"):
+            seen.append((flashattn.LAUNCHES, flashattn.BWD_LAUNCHES))
+        log(f"train: {line}")
+
+    tcfg = TrainConfig(steps=TRAIN_STEPS, ckpt_every=10 ** 9,
+                       ckpt_dir=os.path.join(root, "ck"), keep_ckpts=1,
+                       log_every=1, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                       num_microbatches=TRAIN_MB, seed=TRAIN_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    try:
+        summary = train(cfg, tcfg, dcfg, log=record, device=dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    TRAIN_BWD_LAUNCHES[(cfg.hd, "bfloat16")] = flashattn.BWD_LAUNCHES
+    per_step = [(f - pf, b - pb) for (f, b), (pf, pb)
+                in zip(seen, [(0, 0)] + seen[:-1])]
+    want = (cfg.n_layers * TRAIN_MB * 2, cfg.n_layers * TRAIN_MB)
+    losses, norms, secs = (summary[k] for k in ("losses", "grad_norms",
+                                                "step_s"))
+    med = statistics.median(secs[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_model_flops(cfg, tokens, TRAIN_SEQ)
+    l0_err = abs(losses[0] - loss0) / abs(loss0)
+    log(f"train: losses {losses} | grad norms {norms} | step seconds "
+        f"{[round(x, 3) for x in secs]} (the first includes warm-up) | "
+        f"median step {med:.3f} s = {tokens / med:.0f} tokens/s | peak "
+        f"device memory {peak / 1e9:.2f} GB | model flops per step "
+        f"{flops:.4e} = {flops / med / 1e12:.1f} TFLOP/s, "
+        f"{flops / med / BF16_FLOPS_PER_S:.3f} of the bf16 peak | flash "
+        f"launches per step (forward, backward) {per_step} (want {want}) | "
+        f"step 0 loss {losses[0]:.6f} vs loss_fn without grad "
+        f"{loss0:.6f} (rel {l0_err:.2e}, tol {TRAIN_LOSS_TOL:g}) | "
+        f"{card_line}")
+    if not (len(losses) == TRAIN_STEPS and all(map(math.isfinite,
+                                                   losses + norms))):
+        fail("training produced a non-finite loss or grad norm")
+    if not l0_err <= TRAIN_LOSS_TOL:
+        fail(f"step 0's loss {losses[0]} disagrees with loss_fn's {loss0}")
+    if any(c != want for c in per_step) or len(per_step) != TRAIN_STEPS:
+        fail(f"flash launches per step {per_step}, not {want}")
+    params, opt = steps.init_all(TRAIN_SEED, cfg, device=dev)
+    step_fn = steps.build_train_step(
+        cfg, num_microbatches=TRAIN_MB, peak_lr=TRAIN_LR,
+        warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS, device=dev)
+    batch = TokenPipeline(dcfg).batch(1)
+    params, opt, _ = step_fn(params, opt, batch0)      # warm
+    train_breakdown(torch, step_fn, params, opt, batch)
+    del params, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train: phase 32c took {time.perf_counter() - t_phase:.1f} s")
+
+
+def train_resume_phase(torch, dev) -> None:
+    """32d: at RESUME_LAYERS layers (full widths, bf16, remat), under
+    deterministic algorithms: [train 4] against [train 2, restore, train
+    2], every leaf of (params, AdamWState) bit for bit."""
+    from repro_torch import configs
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.data import DataConfig
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, train
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              n_layers=RESUME_LAYERS)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=TRAIN_SEED)
+    root, where = ckpt_root(4 * 10 * cfg.vocab_size * cfg.d_model)
+    a, b = os.path.join(root, "a"), os.path.join(root, "b")
+    quiet = lambda line: None
+    torch.use_deterministic_algorithms(True)
+    try:
+        for d, n in ((a, 4), (b, 2), (b, 4)):
+            train(cfg, TrainConfig(steps=n, ckpt_every=10 ** 9, ckpt_dir=d,
+                                   log_every=10 ** 9,
+                                   num_microbatches=TRAIN_MB), dcfg,
+                  log=quiet, device=dev)
+        like = steps.init_all(0, cfg, device="cpu")
+        ta, _ = ckpt.restore(a, ckpt.latest_step(a), like)
+        tb, _ = ckpt.restore(b, ckpt.latest_step(b), like)
+        la, lb = adamw.tree_leaves(ta), adamw.tree_leaves(tb)
+        same = len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+        steps_ab = (ckpt.latest_step(a), ckpt.latest_step(b))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"train resume: {TRAIN_ARCH} cut to {RESUME_LAYERS} layers, "
+        f"deterministic algorithms, checkpoints under {where} | [train 4] "
+        f"vs [train 2, restore, train 2] at steps {steps_ab}: {len(la)} "
+        f"leaves bit-identical: {same} | {time.perf_counter() - t0:.1f} s")
+    if not (same and steps_ab == (4, 4)):
+        fail("a resumed training run is not bit-identical to an "
+             "uninterrupted one")
+
+
+def training_phase(torch, dev, timer, card_line: str) -> list:
+    """Phase 32 (a-d). Returns the backward's kernel rows."""
+    t0 = time.perf_counter()
+    rows = flash_bwd_phase(torch, timer, dev)
+    train_grad_phase(torch, dev)
+    train_phase(torch, dev, card_line)
+    train_resume_phase(torch, dev)
+    log(f"train: phase 32 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def small_reference_check(torch, dev) -> None:
     from repro_torch.core import GraphOperator, TieredStore, solve
     from repro_torch.graphs import pack_tiles, rmat_spectral, to_dense
@@ -3701,13 +4165,23 @@ def main() -> None:
     families = lm_families_phase(torch, dev, card_line)   # phase 31
     # the d = 80 row's launches: hubert's forward (one per layer)
     flash_rows[1]["launches"] = families["hubert-xlarge"]["flash"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_rows = training_phase(torch, dev, timer, card_line)   # phase 32
+    for r in bwd_rows:
+        r["launches"] = r["count"]()
+        if r["launches"] <= 0:
+            fail(f"{r['name']} was not launched by phase 32's runs")
+    rows += bwd_rows
     for r in rows:      # the launches at each row's width in phases 29, 30a
         r["serve_launches"] = serve_launches(
             r["name"], serve_counts[0],
-            {**serve_counts[1], "flash_attention_d80": 0})
+            {**serve_counts[1], "flash_attention_d80": 0,
+             "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0})
         r["dist_launches"] = serve_launches(r["name"], dist_widths, {
             "spmm_blocksparse_bf16": 0, "flash_attention": 0,
-            "flash_attention_d80": 0})
+            "flash_attention_d80": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_f32": 0})
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

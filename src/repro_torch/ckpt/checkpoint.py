@@ -14,7 +14,9 @@ Fault-tolerance contract, as in the reference:
 The on-disk format is the reference's, so a checkpoint written by either
 package restores in the other: leaves are named and ordered as JAX's
 `tree_flatten_with_path` names them (dict keys sorted, list and tuple
-items by index, `None` subtrees dropped, path parts joined with "/"),
+items by index, a NamedTuple's fields as ".field" (JAX's `GetAttrKey`;
+`AdamWState` leaves are "1/.step", "1/.m/...", …), `None` subtrees
+dropped, path parts joined with "/"),
 stored as `a<i>` in one `arrays.npz`, with numpy's dtype name and the
 shape of each leaf in the manifest. A bf16 leaf is stored as its raw
 16-bit words (`uint16`) under the dtype name "bfloat16" and decoded
@@ -23,8 +25,8 @@ Leaves may be torch tensors (on any device; copied to the host), numpy
 arrays or Python scalars; `restore` returns torch tensors.
 
 `restore(shardings=...)` is the reference's elastic reshard onto a
-training mesh; it raises until the training side is ported (ROADMAP.md
-queue 1 item 7).
+training mesh; it raises until the mesh side of training is ported
+(ROADMAP.md queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -58,6 +60,10 @@ def _sha256_file(path: str) -> str:
 
 
 # ----------------------------------------------------------------- trees
+def _is_namedtuple(node: Any) -> bool:
+    return isinstance(node, tuple) and hasattr(type(node), "_fields")
+
+
 def _flatten_with_paths(tree: Any) -> Tuple[List[str], List[Any], Any]:
     """(names, leaves, treedef) in JAX's `tree_flatten_with_path` order.
     `treedef` is the tree itself, the template `_unflatten` refills."""
@@ -70,6 +76,9 @@ def _flatten_with_paths(tree: Any) -> Tuple[List[str], List[Any], Any]:
         if isinstance(node, dict):
             for k in sorted(node):
                 walk(node[k], path + (str(k),))
+        elif _is_namedtuple(node):
+            for f, child in zip(node._fields, node):
+                walk(child, path + ("." + f,))
         elif isinstance(node, (list, tuple)):
             for i, child in enumerate(node):
                 walk(child, path + (str(i),))
@@ -89,6 +98,8 @@ def _unflatten(treedef: Any, leaves: List[Any]) -> Any:
             return None
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(build(c) for c in node))
         if isinstance(node, (list, tuple)):
             return type(node)(build(c) for c in node)
         return next(it)

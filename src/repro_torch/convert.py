@@ -3,8 +3,8 @@
 `tiled_from_arrays` builds the port's `TiledMatrix` from the fields of a
 reference `TiledMatrix` (e.g. `dataclasses.asdict(tm)`),
 `store_from_arrays` loads named numpy blocks into a port `TieredStore`,
-and `params_from_arrays` turns a reference model's parameters into the
-port's tensors. With them a test hands both packages the same matrix
+and `params_from_arrays` turns a reference model's parameters (or a
+training state `(params, AdamWState)`) into the port's tensors. With them a test hands both packages the same matrix
 image, subspace blocks and weights without this package importing the
 reference.
 """
@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.tiered import DEVICE, TieredStore
 from repro_torch.device import resolve_device
 from repro_torch.graphs.tiles import TiledMatrix
+from repro_torch.optim.adamw import AdamWState
 
 _ARRAY_FIELDS = {"blocks": np.float32, "block_cols": np.int32,
                  "row_ptr": np.int32, "coo_rows": np.int32,
@@ -67,17 +68,26 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def params_from_arrays(tree, *, device=None):
-    """The port's parameter tree from a reference parameter tree whose
-    leaves are arrays (numpy, or anything `np.asarray` takes): the same
-    nesting of dicts and lists, each leaf a tensor on `device` (the card
-    when None) of the leaf's dtype, bit for bit."""
+    """The port's tree from a reference tree whose leaves are arrays
+    (numpy, or anything `np.asarray` takes): the same nesting of dicts,
+    lists and tuples, each leaf a tensor on `device` (the card when None)
+    of the leaf's dtype, bit for bit. A NamedTuple stays one: the
+    reference's `AdamWState(step, m, v)` becomes the port's
+    `optim.adamw.AdamWState` (recognised by its name and fields, with no
+    import of the reference), any other its own type."""
     dev = resolve_device(device)
 
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(type(node), "_fields"):
+            kind = type(node)
+            if (kind.__name__ == "AdamWState"
+                    and tuple(kind._fields) == AdamWState._fields):
+                kind = AdamWState
+            return kind(*(walk(v) for v in node))
         if isinstance(node, (list, tuple)):
-            return [walk(v) for v in node]
+            return type(node)(walk(v) for v in node)
         return _tensor(node, dev)
 
     return walk(tree)

@@ -38,10 +38,12 @@ SIGNATURES = {
     "repro_gram_f32": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _F, _I,
                        _I, _P],
     "repro_tsgemm_f32": [_P, _P, _P, _P, _LL, _I, _I, _F, _F, _I, _I, _P],
-    "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _F, _I, _P],
-    "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _I, _P],
+    "repro_flash_attention_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _I, _P],
+    "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _I, _P],
+    "repro_flash_attention_bwd_f32": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    "repro_flash_attention_bwd_bf16": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

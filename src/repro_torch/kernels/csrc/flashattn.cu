@@ -58,6 +58,12 @@
 //     which compares the two in a build of its own; the library never
 //     holds it. The denominator sums the float32 weights.
 //
+// Both routes optionally store each row's log-sum-exp of the scaled scores,
+// LSE = m + log(l) in natural units, (B, H, Sq) float32, for the backward
+// (csrc/flashattn_bwd.cu): the bf16 route's running max is in log2 units
+// with the scale folded in, so it stores m ln 2 + log(l). O does not depend
+// on whether LSE is stored.
+//
 // float32 route (flash_attention_kernel): the products on the CUDA cores,
 // instantiated at d = 16, 32, 64, 80 and 128 (any multiple of 16 fits:
 // a thread owns d/16 output columns tx + 16 c, and the float4 reads go
@@ -94,6 +100,7 @@ struct Params {
   const float* k;
   const float* v;
   float* o;
+  float* lse;  // (B, H, Sq) log-sum-exp, or nullptr
   Strides sq, sk, sv, so;
   int batch, heads, kv_heads, len_q, len_k, causal;
   float scale;
@@ -251,6 +258,9 @@ flash_attention_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
       og[qi * p.so.s + tx + 16 * c] = acc[i][c] / denom;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(static_cast<long long>(b) * p.heads + h) * p.len_q + qi] =
+          m[i] + logf(denom);
   }
 }
 
@@ -276,6 +286,7 @@ constexpr int kStages = 2;        // K/V ring depth
 constexpr int kBox = 64;          // TMA box columns: 128 B, the swizzle span
 constexpr int kRowBytes = kBox * 2;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // A (B, H, S, d) tensor as a tensor map: pos[0..2] is the map dim (1..3)
 // of S, H and B; dim 0 is d.
@@ -287,6 +298,7 @@ struct TmaView {
 struct WParams {
   TmaView q, k, v;
   __nv_bfloat16* o;
+  float* lse;  // (B, H, Sq) log-sum-exp, or nullptr
   Strides so;
   int heads, kv_heads, len_q, len_k, head_dim, causal;
   float scale_log2;  // scale * log2(e)
@@ -696,6 +708,11 @@ flash_wgmma_kernel(const __grid_constant__ WParams p) {
       *reinterpret_cast<__nv_bfloat162*>(og + (row_a + 8) * p.so.s + col) =
           __floats2bfloat162_rn(o[4 * i + 2] / den_b, o[4 * i + 3] / den_b);
   }
+  if (p.lse != nullptr && (lane & 3) == 0) {  // one lane of each quad
+    float* lg = p.lse + (static_cast<long long>(b) * p.heads + h) * p.len_q;
+    if (row_a < p.len_q) lg[row_a] = m_a * kLn2 + logf(den_a);
+    if (row_a + 8 < p.len_q) lg[row_a + 8] = m_b * kLn2 + logf(den_b);
+  }
 }
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
@@ -790,10 +807,11 @@ void unpack_strides(const long long* strides, Strides* out[4]) {
 // q (B, H, Sq, d), k/v (B, Hkv, Sk, d), o (B, H, Sq, d) of one type, each
 // addressed by its (batch, head, sequence) strides in elements, in this
 // order in `strides` (a host array of 12): q, k, v, o. The last dim is
-// contiguous. The caller guarantees B, H, Hkv, Sq, Sk >= 1, H % Hkv == 0,
+// contiguous. lse is a contiguous (B, H, Sq) float32 array, or null to
+// store none. The caller guarantees B, H, Hkv, Sq, Sk >= 1, H % Hkv == 0,
 // d in {16, 32, 64, 80, 128}.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
-                                         const void* v, void* o,
+                                         const void* v, void* o, void* lse,
                                          const long long* strides, int batch,
                                          int heads, int kv_heads, int len_q,
                                          int len_k, int head_dim, int causal,
@@ -806,6 +824,7 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k,
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
   p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
   Strides* all[4] = {&p.sq, &p.sk, &p.sv, &p.so};
   unpack_strides(strides, all);
   p.batch = batch;
@@ -830,7 +849,7 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k,
 // each of their strides of a dim longer than 1 is a multiple of 8
 // elements (TMA's rule, checked by the wrapper).
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* o,
+                                          const void* v, void* o, void* lse,
                                           const long long* strides, int batch,
                                           int heads, int kv_heads, int len_q,
                                           int len_k, int head_dim, int causal,
@@ -851,6 +870,7 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
     err = encode_view(&p.v, v, batch, kv_heads, len_k, head_dim, sv, kWBK);
   if (err != 0) return err;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.heads = heads;
   p.kv_heads = kv_heads;
   p.len_q = len_q;

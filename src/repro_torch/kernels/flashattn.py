@@ -17,6 +17,15 @@ P_lo, 16 bits of each), float32 on the CUDA cores (P stays float32).
 TMA needs 16-byte aligned bf16 inputs whose strides, for every dim longer
 than 1, are multiples of 8 elements; the wrapper raises ValueError on
 any other view rather than take another path.
+
+`flash_attention_lse` also returns each row's log-sum-exp (B, H, Sq)
+float32 (the output is the same bits), and `flash_attention_bwd` is the
+backward over `csrc/flashattn_bwd.cu`: (dq, dk, dv) from q, k, v, the
+output, its LSE and dO, in float32 on the CUDA cores for either input
+type, with no atomics (bit-identical run to run). Its plain version is
+`flashattn_ref.flash_attention_bwd_ref`. It takes any strides with a
+contiguous last dim and returns dq laid out as (B, Sq, H, d) and dk, dv
+as (B, Sk, Hkv, d), as the forward lays out its output.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ from repro_torch.kernels._checks import require_cuda_float
 
 LAUNCHES = 0   # kernel launches by this process (chip_smoke reads it)
 LAUNCHES_BY_D: dict[int, int] = {}   # those of them by head dim
+BWD_LAUNCHES = 0   # backward calls that launched (three kernels each)
+BWD_LAUNCHES_BY_D: dict[int, int] = {}   # those of them by head dim
 
 HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's head dims
 # how the bf16 kernel feeds the weights P to the PV product (PERF.md)
@@ -37,40 +48,65 @@ PV_DESIGN = ("P split into bf16 hi + lo, two PV wgmmas per 16 keys "
              "(m64nNk16, A from registers)")
 
 
+def _count(launched: bool, d: int) -> None:
+    global LAUNCHES
+    if launched:
+        LAUNCHES += 1
+        LAUNCHES_BY_D[d] = LAUNCHES_BY_D.get(d, 0) + 1
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    global LAUNCHES
-    out, launched = launch_with(_build.lib, q, k, v, causal=causal)
-    LAUNCHES += launched
-    if launched:
-        d = q.shape[-1]
-        LAUNCHES_BY_D[d] = LAUNCHES_BY_D.get(d, 0) + 1
+    out, _, launched = launch_with(_build.lib, q, k, v, causal=causal)
+    _count(launched, q.shape[-1])
     return out
 
 
-def launch_with(library, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                *, causal: bool) -> tuple[torch.Tensor, bool]:
-    """`flash_attention` through the kernel library that `library()`
-    returns, once the inputs have passed their checks (`_build.lib` for
-    the port's; `flash_pv` passes a variant build): the output, and
-    whether a kernel was launched. It counts nothing in LAUNCHES."""
-    dev = require_cuda_float("flash_attention", q=q, k=k, v=v)
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention` that also stores the row log-sum-exp of the
+    scaled scores: (out, lse (B, H, Sq) float32). Counted in LAUNCHES."""
+    out, lse, launched = launch_with(_build.lib, q, k, v, causal=causal,
+                                     with_lse=True)
+    _count(launched, q.shape[-1])
+    return out, lse
+
+
+def _shapes(name: str, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor) -> tuple[int, ...]:
+    """(B, H, Hkv, Sq, Sk, d) of checked q, k, v."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} must be "
                          f"(B, H, Sq, d) and (B, Hkv, Sk, d)")
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv:
-        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)} (same B and d, H % Hkv == 0)")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} is not one of "
+        raise ValueError(f"{name}: head dim {d} is not one of "
                          f"{HEAD_DIMS}")
+    return b, h, hkv, sq, sk, d
+
+
+def launch_with(library, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                *, causal: bool, with_lse: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor | None, bool]:
+    """`flash_attention` through the kernel library that `library()`
+    returns, once the inputs have passed their checks (`_build.lib` for
+    the port's; `flash_pv` passes a variant build): the output, the LSE
+    (None without `with_lse`), and whether a kernel was launched. It
+    counts nothing in LAUNCHES."""
+    dev = require_cuda_float("flash_attention", q=q, k=k, v=v)
+    b, h, hkv, sq, sk, d = _shapes("flash_attention", q, k, v)
     out = torch.empty((b, sq, h, d), dtype=q.dtype,
                       device=dev).transpose(1, 2)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if b * h * sq == 0:
-        return out, False
+        return out, lse, False
     if sk == 0:
         raise ValueError("flash_attention: no keys (Sk = 0)")
     if q.dtype == torch.bfloat16:
@@ -78,6 +114,7 @@ def launch_with(library, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
             ctypes.addressof(strides), b, h, hkv, sq, sk, d, int(causal),
             1.0 / math.sqrt(d), *_build.device_and_stream(q)]
     if q.dtype == torch.float32:
@@ -91,7 +128,49 @@ def launch_with(library, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention: cuTensorMapEncodeTiled failed with CUresult "
             f"{err - _ERR_ENCODE}")
     _build.check(err, "flash_attention")
-    return out, True
+    return out, lse, True
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention(q, k, v, causal=causal)` = o, given
+    the forward's lse and the output's gradient do. Counted in
+    BWD_LAUNCHES (one per call that launches, three kernels each)."""
+    global BWD_LAUNCHES
+    dev = require_cuda_float("flash_attention_bwd", q=q, k=k, v=v, o=o,
+                             do=do)
+    b, h, hkv, sq, sk, d = _shapes("flash_attention_bwd", q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
+    if (lse.dtype != torch.float32 or lse.device != dev
+            or lse.shape != (b, h, sq) or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"float32 ({b}, {h}, {sq}) tensor on {dev}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    dk = torch.empty((b, sk, hkv, d), dtype=k.dtype,
+                     device=dev).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    if b * h * sq == 0 or sk == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    fn = (_build.lib().repro_flash_attention_bwd_f32
+          if q.dtype == torch.float32 else
+          _build.lib().repro_flash_attention_bwd_bf16)
+    err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk,
+                                      dv)),
+             ctypes.addressof(strides), b, h, hkv, sq, sk, d, int(causal),
+             1.0 / math.sqrt(d), *_build.device_and_stream(q))
+    _build.check(err, "flash_attention_bwd")
+    BWD_LAUNCHES += 1
+    BWD_LAUNCHES_BY_D[d] = BWD_LAUNCHES_BY_D.get(d, 0) + 1
+    return dq, dk, dv
 
 
 # error codes of the bf16 launcher beyond cudaError_t (csrc/flashattn.cu)

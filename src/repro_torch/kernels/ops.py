@@ -19,7 +19,9 @@ from repro_torch.kernels import flashattn as _flash_kernel
 from repro_torch.kernels import gram as _gram_kernel
 from repro_torch.kernels import spmm_tile as _spmm_kernel
 from repro_torch.kernels import tsgemm as _tsgemm_kernel
-from repro_torch.kernels.flashattn_ref import attention_ref
+from repro_torch.kernels.flashattn_ref import (attention_ref,
+                                               attention_ref_lse,
+                                               flash_attention_bwd_ref)
 from repro_torch.kernels.gram_ref import gram_ref
 from repro_torch.kernels.spmm_ref import coo_spmm_ref, spmm_ref
 from repro_torch.kernels.tsgemm_ref import tsgemm_ref
@@ -124,13 +126,50 @@ def gram(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
 # Attention
 # ---------------------------------------------------------------------------
 
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward keeps q, k, v, the
+    output and its row LSE; the backward launches the hand-written
+    backward kernels where the forward launched the kernel, and the plain
+    backward on the CPU, so both paths run the same wiring."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, use_kernel: bool):
+        if use_kernel:
+            out, lse = _flash_kernel.flash_attention_lse(q, k, v,
+                                                         causal=causal)
+        else:
+            out, lse = attention_ref_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.use_kernel = causal, use_kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:     # e.g. the expanded ones of a sum
+            do = do.contiguous()
+        bwd = (_flash_kernel.flash_attention_bwd if ctx.use_kernel
+               else flash_attention_bwd_ref)
+        dq, dk, dv = bwd(q, k, v, out, lse, do, causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, impl: Impl = "auto") -> torch.Tensor:
     """Softmax attention, scale 1/√d: q (B, H, Sq, d), k/v (B, Hkv, Sk, d)
     with H % Hkv == 0 → (B, H, Sq, d) in q's dtype. Scores and sums are
     float32 on both paths; the weights are float32 too, except in the
     kernel's bf16 path, which feeds them to the PV product as a bf16 pair
-    (16 bits)."""
-    if _use_kernel(impl, q):
+    (16 bits).
+
+    Differentiable: when grad is enabled and an input needs a gradient,
+    the call goes through `_FlashAttention` (the forward also stores the
+    row LSE, the backward is a kernel too on a CUDA tensor). Otherwise
+    (serving) it is the forward alone, as it always was."""
+    use_kernel = _use_kernel(impl, q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, use_kernel)
+    if use_kernel:
         return _flash_kernel.flash_attention(q, k, v, causal=causal)
     return attention_ref(q, k, v, causal=causal)

@@ -25,6 +25,7 @@ choice. None (the default) records nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -35,6 +36,19 @@ from repro_torch.models.modules import (_normal, act_fn, apply_linear,
                                         init_mlp)
 
 ROUTING_LOG: list | None = None
+
+
+@contextlib.contextmanager
+def routing_log_paused():
+    """ROUTING_LOG set to None inside the block, then restored: the
+    recompute of a layer under remat routes its tokens a second time,
+    which is not a second routing."""
+    global ROUTING_LOG
+    saved, ROUTING_LOG = ROUTING_LOG, None
+    try:
+        yield
+    finally:
+        ROUTING_LOG = saved
 
 
 def init_moe(gen, cfg, *, lead: tuple = ()):
@@ -80,7 +94,10 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _log_routing(cfg, logits, gate_idx, keep) -> None:
-    ranked = torch.sort(logits, dim=-1, descending=True).values
+    # a record, not part of the loss: detached, so that it keeps no graph
+    # alive and a layer saves the same tensors for backward with the log
+    # on as off (which remat's recompute, run with it off, checks)
+    ranked = torch.sort(logits.detach(), dim=-1, descending=True).values
     k = cfg.top_k
     margin = (ranked[..., k - 1] - ranked[..., k] if k < cfg.n_experts
               else torch.full_like(ranked[..., 0], math.inf))

@@ -12,8 +12,16 @@ Parameters keep the reference's layout: `params["stack"]["l{i}"]` leaves
 carry a leading `n_super` axis (one slice per repetition of cfg.pattern),
 remainder layers sit in `params["rem"]` (layer i of the remainder has
 kind `cfg.pattern[i]`). `jax.lax.scan` over the stack becomes a Python
-loop indexing that axis (views, no copies). There is no remat: the port
-runs inference only.
+loop over that axis (views, no copies). The full forward unbinds each
+stacked leaf once, so that its backward stacks the super-layers'
+gradients in one step rather than adding a stack-sized gradient per
+slice. With cfg.remat and grad enabled, each super-layer runs under
+`torch.utils.checkpoint` (non-reentrant), as the reference wraps the
+scan body in `jax.checkpoint`: its activations are dropped and
+recomputed in the backward, the flash forward included; the recompute
+does not log MoE routings (`moe.routing_log_paused`), so
+`moe.ROUTING_LOG` sees each routing once. The remainder layers run
+without remat, as in the reference.
 
 Frontends are stubs, as in the reference: an audio model takes frame
 embeddings (B, S, D) through `embed.in_proj`, a patch model takes patch
@@ -27,9 +35,11 @@ raising when there is none.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -185,6 +195,25 @@ def _encoder(cfg, encoder, device, like: torch.Tensor):
 
 
 # ---------------------------------------------------------------- forward
+def _unbind(tree, n: int) -> list:
+    """A stacked tree as n trees of slices: one `torch.unbind` per leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _super_layer(cfg, sp, x, positions, encoder):
+    """One repetition of cfg.pattern (the reference's scan body)."""
+    for i, kind in enumerate(cfg.pattern):
+        x = _apply_layer(cfg, sp[f"l{i}"], kind, x, positions, encoder)
+    return x
+
+
+def _recompute_contexts():
+    return contextlib.nullcontext(), moe_mod.routing_log_paused()
+
+
 def forward(params, cfg: ArchConfig, inputs, *, encoder=None, device=None):
     """inputs: int tokens (B,S), or frame embeddings (B,S,D) for audio
     frontends; encoder: patch embeddings (B,n_img,D) for cross layers.
@@ -193,8 +222,17 @@ def forward(params, cfg: ArchConfig, inputs, *, encoder=None, device=None):
     encoder = _encoder(cfg, encoder, device, x)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
                              device=x.device)
-    for kind, p in _layers(params, cfg):
-        x = _apply_layer(cfg, p, kind, x, positions, encoder)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for sp in _unbind(params["stack"], cfg.n_super):
+        if remat:
+            # the layers draw no random numbers: no RNG state to keep
+            x = checkpoint(_super_layer, cfg, sp, x, positions, encoder,
+                           use_reentrant=False, preserve_rng_state=False,
+                           context_fn=_recompute_contexts)
+        else:
+            x = _super_layer(cfg, sp, x, positions, encoder)
+    for i, p in enumerate(params["rem"]):
+        x = _apply_layer(cfg, p, cfg.pattern[i], x, positions, encoder)
     return apply_norm(cfg, params["final_norm"], x)
 
 
@@ -204,7 +242,10 @@ def logits_fn(params, cfg, inputs, *, encoder=None, device=None):
 
 
 def loss_fn(params, cfg, batch, *, device=None):
-    """Mean next-token cross entropy (forward only; no gradients yet)."""
+    """Mean next-token cross entropy over the batch's "targets", from
+    "tokens" (or "frames" for an audio frontend, with "image_embeds" for
+    a patch frontend). Differentiable in the parameters: the flash
+    kernel has a backward kernel (`kernels.ops.flash_attention`)."""
     inp = batch.get("frames") if cfg.frontend == "audio" else \
         batch["tokens"]
     logits = logits_fn(params, cfg, inp, encoder=batch.get("image_embeds"),

@@ -1,0 +1,144 @@
+"""Flash attention's backward on the CPU: the plain backward
+`flash_attention_bwd_ref` and the autograd Function's CPU path of
+`kernels.ops.flash_attention`, against `jax.grad` of the reference's
+plain attention (`repro.kernels.flashattn_ref.attention_ref`, one head,
+mapped over batch and heads; a KV head is repeated for its G query heads
+inside the differentiated function, so its gradient sums them).
+
+Inputs are float32 from numpy generators of fixed seeds. Tolerance:
+rtol 1e-5 with atol 1e-6 of the gradient's largest magnitude (both sides
+float32, sums in another order). The row log-sum-exp is held the same
+way. The card's kernels are held to this plain backward in
+`tests/test_torch_gpu.py` and chip_smoke.py's phase 32.
+"""
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flashattn_ref import attention_ref as jax_attention_ref
+from repro_torch.kernels import flashattn, ops
+from repro_torch.kernels.flashattn_ref import (attention_ref_lse,
+                                               flash_attention_bwd_ref)
+
+CASES = [  # (B, H, Hkv, Sq, Sk, d, causal)
+    (2, 4, 2, 24, 24, 16, True),
+    (1, 6, 2, 33, 33, 64, True),
+    (2, 4, 4, 20, 20, 80, False),
+    (1, 4, 1, 17, 29, 64, False),
+    (2, 2, 1, 40, 40, 80, True),
+]
+
+
+def _inputs(b, h, hkv, sq, sk, d, seed):
+    g = np.random.default_rng(seed)
+    r = lambda *s: g.standard_normal(s).astype(np.float32)
+    return r(b, h, sq, d), r(b, hkv, sk, d), r(b, hkv, sk, d), r(b, h, sq, d)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(case):
+    """(inputs q, k, v, do; JAX's output; JAX's (dq, dk, dv)) of a case,
+    made once for both tests."""
+    *shape, causal = case
+    q, k, v, do = _inputs(*shape, seed=sum(shape))
+    group = q.shape[1] // k.shape[1]
+    one = jax.vmap(jax.vmap(lambda q_, k_, v_: jax_attention_ref(
+        q_, k_, v_, causal=causal)))
+
+    @jax.jit
+    def f(q, k, v, do):
+        out, vjp = jax.vjp(lambda q, k, v: one(
+            q, jnp.repeat(k, group, axis=1), jnp.repeat(v, group, axis=1)),
+            q, k, v)
+        return out, vjp(do)
+
+    out, grads = f(*map(jnp.asarray, (q, k, v, do)))
+    return (q, k, v, do), np.asarray(out), [np.asarray(x) for x in grads]
+
+
+def _close(got, want):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    atol = 1e-6 * float(np.max(np.abs(want)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_matches_jax_grad(case):
+    causal = case[-1]
+    (q, k, v, do), want_o, want_g = _reference(case)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = attention_ref_lse(tq, tk, tv, causal=causal)
+    _close(o, want_o)
+    # LSE: the log-sum-exp of the scaled, masked scores
+    s = np.einsum("bhqd,bhkd->bhqk", q, np.repeat(k, q.shape[1] // k.shape[1],
+                                                  axis=1)) / math.sqrt(q.shape[-1])
+    if causal:
+        s = np.where(np.tril(np.ones(s.shape[-2:], bool)), s, -np.inf)
+    _close(lse, np.asarray(jax.nn.logsumexp(jnp.asarray(s), axis=-1)))
+    got = flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal=causal)
+    for g, w, t in zip(got, want_g, (tq, tk, tv)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        _close(g, w)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_autograd_cpu_path_matches_jax_grad(case):
+    """`ops.flash_attention` on inputs that need gradients goes through
+    the autograd Function; on CPU tensors its backward is the plain one,
+    and no kernel is counted. The inputs are strided (B, S, H, d) views,
+    as the model passes them."""
+    causal = case[-1]
+    (q, k, v, do), _, want_g = _reference(case)
+    leaves = [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3)))
+              .requires_grad_() for a in (q, k, v)]
+    before = (flashattn.LAUNCHES, flashattn.BWD_LAUNCHES)
+    out = ops.flash_attention(*(t.transpose(1, 2) for t in leaves),
+                              causal=causal)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    out.backward(torch.from_numpy(do))
+    assert (flashattn.LAUNCHES, flashattn.BWD_LAUNCHES) == before
+    for t, w in zip(leaves, want_g):
+        _close(t.grad.transpose(1, 2), w)
+
+
+def test_serving_path_is_unchanged():
+    """No input needs a gradient, or grad is off: the forward alone,
+    with no autograd node, and the same values as the plain attention."""
+    q, k, v, _ = _inputs(1, 4, 2, 9, 9, 16, seed=0)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    plain = attention_ref_lse(tq, tk, tv, causal=True)[0]
+    out = ops.flash_attention(tq, tk, tv)
+    assert out.grad_fn is None and torch.equal(out, plain)
+    with torch.no_grad():
+        out = ops.flash_attention(tq.requires_grad_(), tk, tv)
+    assert out.grad_fn is None and torch.equal(out, plain)
+    out = ops.flash_attention(tq, tk, tv)        # grad on: the Function
+    assert torch.equal(out.detach(), plain)
+
+
+def test_grad_of_a_sum_and_bf16_cpu_path():
+    """An expanded cotangent (the ones of `.sum()`, stride 0) is laid out
+    before the backward; bf16 inputs get bf16 gradients."""
+    q, k, v, _ = _inputs(1, 2, 1, 12, 12, 16, seed=2)
+    for dtype in (torch.float32, torch.bfloat16):
+        ts = [torch.from_numpy(a).to(dtype).requires_grad_()
+              for a in (q, k, v)]
+        ops.flash_attention(*ts, causal=False).sum().backward()
+        assert all(t.grad.dtype == dtype and torch.isfinite(
+            t.grad.float()).all() for t in ts)
+
+
+def test_backward_kernel_refuses_cpu_tensors():
+    q, k, v, do = map(torch.from_numpy, _inputs(1, 2, 1, 8, 8, 16, seed=3))
+    o, lse = attention_ref_lse(q, k, v)
+    before = flashattn.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flashattn.flash_attention_bwd(q, k, v, o, lse, do)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flashattn.flash_attention_lse(q, k, v)
+    assert flashattn.BWD_LAUNCHES == before

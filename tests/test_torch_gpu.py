@@ -13,7 +13,9 @@ of the sum of the products' magnitudes. The solver family's widths
 with gram(A, A) exactly symmetric; tsgemm's vec8x8 and pair2x2, also
 bit for bit against the generic kernel) are held the same way, and
 LOBPCG and the spectral transforms on the card to the same solves on
-the CPU's plain versions (rtol 1e-5). Flash attention is held to its
+the CPU's plain versions (rtol 1e-5). Flash attention's backward is held
+to its plain backward and to the float64 gradient (`FLASH_BWD_TOL`, with
+the reasons), bit-identical run to run. Flash attention is held to its
 plain version run in float32 on the same inputs: 2e-5 of the output's
 largest magnitude for float32 (sums in another order and another exp),
 2^-8 of it for bf16, whose output is rounded once to bf16 (half an ulp,
@@ -32,6 +34,8 @@ import torch
 
 from repro_torch.graphs import pack_tiles, rmat_graph
 from repro_torch.kernels import flashattn, gram, ops, spmm_tile, tsgemm
+from repro_torch.kernels.flashattn_ref import (attention_ref_lse,
+                                               flash_attention_bwd_ref)
 
 # cuBLAS reads it when its first handle is made; set before any test runs
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -769,6 +773,140 @@ def test_flash_at_hubert_head_dim(cuda, causal, dtype):
     assert got.shape == q.shape and got.dtype == dtype
     assert _flash_err(got, q, k, v, causal) <= FLASH_TOL[dtype]
     assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+
+
+# The backward against the plain backward on the same inputs (the
+# kernel's O and LSE): float32 1e-5 of the largest magnitude (sums in
+# another order); bf16 2^-7, the gradients being rounded once to bf16
+# (2^-9 to 2^-8 of a value) from float32 sums. Against the float64
+# gradient of the exact forward: float32 1e-5; bf16 2^-6, since
+# D = rowsum(dO∘O) then takes the bf16-rounded O, whose error the
+# difference dP − D can bring near the size of dS.
+FLASH_BWD_TOL = {torch.float32: (1e-5, 1e-5),
+                 torch.bfloat16: (2.0 ** -7, 2.0 ** -6)}
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def _flash_bwd_check(cuda, dtype, b, h, hkv, sq, sk, d, causal, seed):
+    """Kernel backward against the plain one and float64; returns the
+    kernel's gradients."""
+    g = np.random.default_rng(seed)
+    q, k, v = (_t(g.standard_normal((b, s, n, d)).astype(np.float32))
+               .to(cuda).to(dtype).transpose(1, 2)
+               for s, n in ((sq, h), (sk, hkv), (sk, hkv)))
+    do = _t(g.standard_normal((b, h, sq, d)).astype(np.float32)).to(
+        cuda).to(dtype)
+    o, lse = flashattn.flash_attention_lse(q, k, v, causal=causal)
+    assert torch.equal(o, flashattn.flash_attention(q, k, v, causal=causal))
+    o_ref, lse_ref = attention_ref_lse(q, k, v, causal=causal)
+    assert float((lse - lse_ref).abs().max()) <= 1e-5 * float(
+        lse_ref.abs().max()) + 1e-5
+    before = flashattn.BWD_LAUNCHES
+    got = flashattn.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert flashattn.BWD_LAUNCHES == before + 1
+    again = flashattn.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    plain = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                    o.float(), lse, do.float(),
+                                    causal=causal)
+    q6, k6, v6 = q.double(), k.double(), v.double()
+    o6, lse6 = attention_ref_lse(q6, k6, v6, causal=causal)
+    exact = flash_attention_bwd_ref(q6, k6, v6, o6, lse6, do.double(),
+                                    causal=causal)
+    tol_plain, tol_exact = FLASH_BWD_TOL[dtype]
+    for x, y, p, e, t in zip(got, again, plain, exact, (q, k, v)):
+        assert x.dtype == dtype and x.shape == t.shape
+        assert torch.equal(x, y)
+        assert _rel(x, p) <= tol_plain
+        assert _rel(x, e) <= tol_exact
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+def test_flash_backward_vs_plain_on_card(cuda, d, causal, dtype):
+    """GQA (6 query heads on 2 KV heads), ragged lengths (not multiples of
+    the 64-row tiles), Sq < Sk; strided (B, S, H, d) views; bit-identical
+    run to run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for sq, sk in ((200, 200), (70, 130)):
+        _flash_bwd_check(cuda, dtype, 2, 6, 2, sq, sk, d, causal, seed=d)
+
+
+@pytest.mark.gpu
+def test_flash_backward_at_qwen2_training_layer(cuda):
+    """qwen2-1.5b's training layer: q (2, 12, 4096, 128), k/v (2, 2,
+    4096, 128), bf16, causal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _flash_bwd_check(cuda, torch.bfloat16, 2, 12, 2, 4096, 4096, 128, True,
+                     seed=4096)
+
+
+@pytest.mark.gpu
+def test_flash_autograd_launches_on_card(cuda):
+    """With inputs that need gradients, one forward launch (with LSE) and
+    one backward launch, never the plain backward; without, the serving
+    forward alone. Gradients equal the kernel backward's."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).bfloat16()
+               for s in ((1, 4, 96, 64), (1, 2, 96, 64), (1, 2, 96, 64)))
+    f0, b0 = flashattn.LAUNCHES, flashattn.BWD_LAUNCHES
+    ops.flash_attention(q, k, v)
+    assert (flashattn.LAUNCHES, flashattn.BWD_LAUNCHES) == (f0 + 1, b0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves)
+    do = torch.randn(out.shape, generator=g, device=cuda).bfloat16()
+    out.backward(do)
+    assert (flashattn.LAUNCHES, flashattn.BWD_LAUNCHES) == (f0 + 2, b0 + 1)
+    o, lse = flashattn.flash_attention_lse(q, k, v)
+    want = flashattn.flash_attention_bwd(q, k, v, o, lse, do)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+
+
+@pytest.mark.gpu
+def test_reduced_train_step_on_card_matches_cpu(cuda):
+    """One train step of reduced("qwen2-1.5b") in float32 with remat, two
+    microbatches, on the card (flash forward and backward kernels) and on
+    the CPU (plain versions): loss and grad norm to 1e-5, every parameter
+    to 2·lr (Adam's step-1 sign, as in tests/test_torch_train.py); the
+    forward launches per step are layers × microbatches × 2 (remat
+    recomputes each), the backward launches layers × microbatches."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.reduced("qwen2-1.5b"), remat=True)
+    lr, mb = 1e-3, 2
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    out = {}
+    for dev in ("cpu", cuda):
+        params, opt = steps.init_all(0, cfg, device="cpu")
+        params = adamw.tree_map(lambda t: t.to(dev), params)
+        opt = adamw.AdamWState(*(adamw.tree_map(lambda t: t.to(dev), x)
+                                 for x in opt))
+        fn = steps.build_train_step(cfg, num_microbatches=mb, peak_lr=lr,
+                                    warmup=0, total_steps=10, device=dev)
+        f0, b0 = flashattn.LAUNCHES, flashattn.BWD_LAUNCHES
+        p, _, m = fn(params, opt, batch)
+        out[str(dev)] = (p, m, flashattn.LAUNCHES - f0,
+                         flashattn.BWD_LAUNCHES - b0)
+    (pc, mc, fc, bc), (pg, mg, fg, bg) = out["cpu"], out[str(cuda)]
+    assert (fc, bc) == (0, 0)
+    assert (fg, bg) == (cfg.n_layers * mb * 2, cfg.n_layers * mb)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-5)
+    for a, b in zip(adamw.tree_leaves(pg), adamw.tree_leaves(pc)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=2 * lr + 1e-6)
 
 
 @pytest.mark.gpu

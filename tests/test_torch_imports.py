@@ -69,7 +69,13 @@ def test_import_loads_no_jax_and_no_reference_module():
               "repro_torch.dist.compress", "repro_torch.dist.dspmm",
               "repro_torch.dist.dist_operator",
               "repro_torch.examples.dist_eigen_e2e",
-              "repro_torch.benchmarks.bench_dist_e2e"):
+              "repro_torch.benchmarks.bench_dist_e2e",
+              "repro_torch.data", "repro_torch.data.pipeline",
+              "repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.optim.schedule", "repro_torch.ft.straggler",
+              "repro_torch.ft.coordinator", "repro_torch.train",
+              "repro_torch.train.trainer", "repro_torch.launch.train",
+              "repro_torch.examples.train_lm"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -217,6 +223,38 @@ def test_model_entry_points_without_device_raise_without_cuda(monkeypatch):
                                           torch.zeros((1, 1), dtype=torch.int32),
                                           4)
     assert logits.device.type == out.device.type == "cpu"
+
+
+def test_training_entry_points_without_device_raise_without_cuda(
+        monkeypatch, tmp_path):
+    """The trainer, its launcher (cuda by default), the example and
+    init_all run nowhere unless the caller names the CPU."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import steps
+    from repro_torch.train import TrainConfig, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.reduced("qwen2-1.5b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.init_all(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(cfg, TrainConfig(steps=1, ckpt_dir=str(tmp_path)),
+              DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                         global_batch=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "qwen2-1.5b", "--reduced", "--steps",
+                           "1", "--ckpt-dir", str(tmp_path / "l")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_lm.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "e")])
+    params, opt = steps.init_all(0, cfg, device="cpu")
+    batch = {"tokens": np.zeros((2, 8), np.int32),
+             "targets": np.zeros((2, 8), np.int32)}
+    with pytest.raises(RuntimeError, match="CUDA"):   # arrays: no device
+        steps.build_train_step(cfg)(params, opt, batch)
+    _, _, m = steps.build_train_step(cfg, device="cpu")(params, opt, batch)
+    assert m["loss"].device.type == "cpu"
 
 
 def test_frontend_entry_points_without_device_raise_without_cuda(
