@@ -283,14 +283,17 @@ The other LM families, after 13:
      GEMMs and combine.
 
 Training, after 31:
- 32. train. 32a, the flash backward (`csrc/flashattn_bwd.cu`) against
-     its plain version on the same inputs and against the float64
-     gradient of the exact forward (FLASH_BWD_TOL), bit-identical run to
-     run, at qwen2-1.5b's training layer, yi-9b's prefill shape, hubert's
-     d = 80 and a float32 shape; the forward's LSE against the plain one
-     and its O unchanged by storing LSE; the qwen2 and float32 shapes
-     timed with L2 flushed beside the plain backward, SDPA's backward
-     (the library row) and the bound. 32b, qwen2-1.5b cut to 2 layers at
+ 32. train. 32a, the flash backward (`csrc/flashattn_bwd.cu`: bf16 on
+     wgmma + TMA, float32 on the CUDA cores) against its plain version
+     on the same inputs and against the float64 gradient of the exact
+     forward (FLASH_BWD_TOL), bit-identical run to run, at qwen2-1.5b's
+     training layer, yi-9b's prefill shape, hubert's d = 80 and a
+     float32 shape; the forward's LSE against the plain one and its O
+     unchanged by storing LSE; the qwen2 and float32 shapes timed with
+     L2 flushed beside the plain backward, SDPA's backward (the library
+     row), the bound (5 products) and the design's floor (7: dQ
+     recomputes S and dP, so that no sum needs an atomic). 32b,
+     qwen2-1.5b cut to 2 layers at
      full widths in float32 with remat: every leaf's gradient over one
      sequence of 1,024 tokens on the card (kernels) against the host
      CPU's (plain versions), and the flash launches (2 forward per layer
@@ -305,8 +308,10 @@ Training, after 31:
      tokens/s, peak device memory, model flops per step and their share
      of the bf16 peak, the final checkpoint (on /dev/shm when it has
      room) with its bytes and seconds, and one more step profiled by
-     kind (GEMMs, flash forward, flash backward, optimizer, elementwise)
-     with its idle share. 32d, at 2 layers under deterministic
+     kind (GEMMs, flash forward, flash backward with its kernels per
+     call, optimizer, elementwise) with its idle share, each flash
+     forward call marked so that the log names any whose kernel record
+     the profile lost. 32d, at 2 layers under deterministic
      algorithms: [train 4] against [train 2, restore, train 2], every
      leaf of (params, AdamWState) bit for bit.
 
@@ -477,9 +482,12 @@ FLASH_BWD_SHAPES = (
 # kernel's O and LSE) and against the float64 gradient of the exact
 # forward, of the gradient's largest magnitude: float32 1e-5 both (sums
 # in another order); bf16 2^-7 against the plain version (the gradients
-# are rounded once to bf16 from float32 sums: 2^-9 to 2^-8 of a value)
-# and 2^-6 against float64 (D = rowsum(dO∘O) takes the bf16 O, whose
-# rounding the difference dP − D can bring near the size of dS)
+# are rounded once to bf16 from float32 sums: 2^-9 to 2^-8 of a value;
+# the tensor-core route also rounds P and dS to bf16 for their products,
+# which a CPU model of it, tests/test_torch_flash_bwd.py, puts at 2e-3
+# to 4e-3 in all) and 2^-6 against float64 (D = rowsum(dO∘O) takes the
+# bf16 O, whose rounding the difference dP − D can bring near the size
+# of dS)
 FLASH_BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 2.0 ** -6)}
 # the forward's LSE against the plain one, absolute (log units; float32
 # sums of ~10^3 terms)
@@ -613,27 +621,36 @@ def make_graph(n_log2: int, nnz_log2: int):
     return tm, (r, c, v)
 
 
-def kernels_per_call(torch, fn, calls: int = 4) -> float:
+def kernels_per_call(torch, fn, calls: int = 4, windows: int = 3) -> float:
     """Device kernels that one call of fn launches, counted by the
     profiler over `calls` calls (copies and fills excluded). A fill opens
     and closes the window: after earlier profiler sessions the first
     kernel of a window can go unrecorded (seen in this script's runs,
     where the same calls counted alone give one kernel per call), and
-    the fill takes that place."""
+    the fill takes that place. A window can also come back with none of
+    fn's kernels (seen once in this script's runs, for calls that launched:
+    the wrappers count every launch and their results are checked), so
+    such a window is logged and profiled again, up to `windows` times; a
+    count other than 0 is returned as it is."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     word = torch.empty(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        word.fill_(1.0)
-        for _ in range(calls):
-            fn()
-        word.fill_(1.0)
+    for window in range(1, windows + 1):
         torch.cuda.synchronize()
-    n = sum(evt.count for evt in prof.key_averages()
-            if "CUDA" in str(getattr(evt, "device_type", ""))
-            and not evt.key.startswith(("Memcpy", "Memset"))
-            and "FillFunctor" not in evt.key)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            word.fill_(1.0)
+            for _ in range(calls):
+                fn()
+            word.fill_(1.0)
+            torch.cuda.synchronize()
+        n = sum(evt.count for evt in prof.key_averages()
+                if "CUDA" in str(getattr(evt, "device_type", ""))
+                and not evt.key.startswith(("Memcpy", "Memset"))
+                and "FillFunctor" not in evt.key)
+        if n:
+            break
+        log(f"kernels_per_call: profile window {window} of {windows} "
+            f"recorded none of the {calls} calls' kernels")
     return n / calls
 
 
@@ -3740,10 +3757,14 @@ def _flash_bwd_row(torch, F, timer, flashattn, bwd_ref, q, k, v, o, lse, do,
     nbytes = (4 * b * h * s * d + 4 * b * hkv * s * d) * size + 4 * b * h * s
     peak = BF16_FLOPS_PER_S if dt == "bfloat16" else F32_FLOPS_PER_S
     bms, by = bound_ms(nbytes, flops, peak)
+    floor_ms = bound_ms(nbytes, 14 * d * pairs, peak)[0]   # 7 products
     log(f"kernel flash_attention_bwd: {label} | {ms:.3f} ms = "
-        f"{flops / ms / 1e9:.1f} TFLOP/s, plain {plain:.3f} ms, library "
-        f"scaled_dot_product_attention backward {lib_ms:.3f} ms, bound "
-        f"{bms:.4f} ms ({by}, {dt} peak) | {flops:.3e} flop, {nbytes} bytes")
+        f"{flops / ms / 1e9:.1f} TFLOP/s of the 5-product work "
+        f"({1.4 * flops / ms / 1e9:.1f} of the 7 it does), plain "
+        f"{plain:.3f} ms, library scaled_dot_product_attention backward "
+        f"{lib_ms:.3f} ms, bound {bms:.4f} ms ({by}, {dt} peak), the "
+        f"design's 7-product floor {floor_ms:.4f} ms | {flops:.3e} flop, "
+        f"{nbytes} bytes")
     name = ("flash_attention_bwd" if dt == "bfloat16"
             else "flash_attention_bwd_f32")
     key = (d, dt)
@@ -3753,7 +3774,8 @@ def _flash_bwd_row(torch, F, timer, flashattn, bwd_ref, q, k, v, o, lse, do,
                         "of _attend; no Pallas backward)",
             "count": lambda: TRAIN_BWD_LAUNCHES.get(key, 0),
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "floor_ms": floor_ms}
 
 
 # backward launches of phase 32's runs by (head dim, dtype): 32c's trainer
@@ -3841,25 +3863,40 @@ def train_model_flops(cfg, tokens: int, seq: int) -> float:
     return 3.0 * (matmul + attn)
 
 
-def train_breakdown(torch, step_fn, params, opt, batch) -> tuple:
+def train_breakdown(torch, step_fn, params, opt, batch,
+                    step_ms: float) -> tuple:
     """Device time by kind over one profiled training step (the optimizer
     marked by a profiler range around `adamw.global_norm_clip` and
-    `adamw.update`), beside its wall time. Returns (params, opt)."""
+    `adamw.update`), beside its wall time and the median unprofiled step
+    `step_ms` (the profiler slows the host). Each flash forward call is
+    marked by a range of its own (serving or with LSE), whose device-side
+    copy spans the call's kernels and carries the CPU range's id: the log
+    counts the calls, those copies and the flash forward kernels, and
+    names (by index in the step) any call with no device-side copy (its
+    kernel's record was lost with it); the backward's kernels per call
+    come from the wrapper's count, its device time by kernel from the
+    profile. Returns (params, opt)."""
     from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import flashattn
     from repro_torch.optim import adamw
-    saved = adamw.update, adamw.global_norm_clip
+    saved = (adamw.update, adamw.global_norm_clip, flashattn.flash_attention,
+             flashattn.flash_attention_lse)
 
-    def marked(fn):
+    def marked(fn, name):
         def call(*a, **kw):
-            with record_function("optimizer"):
+            with record_function(name):
                 return fn(*a, **kw)
         return call
 
-    adamw.update, adamw.global_norm_clip = map(marked, saved)
+    adamw.update, adamw.global_norm_clip = (marked(f, "optimizer")
+                                            for f in saved[:2])
+    flashattn.flash_attention = marked(saved[2], "flash_fwd_call:serve")
+    flashattn.flash_attention_lse = marked(saved[3], "flash_fwd_call:lse")
     kinds = {"flash_bwd": ("flash_bwd_",),
              "flash_fwd": ("flash_attention_kernel", "flash_wgmma_kernel"),
              "gemm": ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass"),
              "memcpy": ("Memcpy", "Memset")}
+    bwd0 = flashattn.BWD_LAUNCHES
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -3870,10 +3907,12 @@ def train_breakdown(torch, step_fn, params, opt, batch) -> tuple:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     finally:
-        adamw.update, adamw.global_norm_clip = saved
+        (adamw.update, adamw.global_norm_clip, flashattn.flash_attention,
+         flashattn.flash_attention_lse) = saved
+    bwd_calls = flashattn.BWD_LAUNCHES - bwd0
     cats, counts, others = _device_ms_by_kind(
         prof, kinds, label=lambda name: "range" if name == "optimizer"
-        else None)
+        or name.startswith("flash_fwd_call") else None)
     cats.pop("range", None)
     opt_ms = sum(e.device_time_total for e in prof.events()
                  if e.name == "optimizer"
@@ -3881,12 +3920,33 @@ def train_breakdown(torch, step_fn, params, opt, batch) -> tuple:
     cats["optimizer"] = opt_ms
     cats["elementwise"] = cats.pop("other") - opt_ms
     busy = sum(cats.values())
+    on_card = [e for e in prof.events() if "CUDA" in str(e.device_type)]
+    fwd_kernels = sum(1 for e in on_card
+                      if any(p in e.name for p in kinds["flash_fwd"]))
+    copies = {e.id for e in on_card if e.name.startswith("flash_fwd_call")}
+    cpu_calls = sorted((e for e in prof.events()
+                        if e.name.startswith("flash_fwd_call")
+                        and "CPU" in str(e.device_type)),
+                       key=lambda e: e.time_range.start)
+    lost = [(i, e.name.split(":")[1]) for i, e in enumerate(cpu_calls)
+            if e.id not in copies]
+    bwd_split = {e.key.split("flash_bwd_")[1].split("<")[0].split("(")[0]:
+                 (round(e.self_device_time_total / 1e3, 2), e.count)
+                 for e in prof.key_averages()
+                 if "flash_bwd_" in e.key and "CUDA" in str(e.device_type)}
     log(f"train breakdown (one profiled step): wall {wall:.1f} ms | device "
-        f"busy {busy:.1f} ms, idle share {1 - busy / wall:.3f} | device ms "
-        f"by kind {json.dumps({k: round(v, 2) for k, v in cats.items()})} | "
+        f"busy {busy:.1f} ms, idle share {1 - busy / wall:.3f} (of the "
+        f"median unprofiled step {step_ms:.1f} ms: {1 - busy / step_ms:.3f})"
+        f" | device ms by kind "
+        f"{json.dumps({k: round(v, 2) for k, v in cats.items()})} | "
         f"launches flash_fwd {counts['flash_fwd']}, flash_bwd "
-        f"{counts['flash_bwd']} (three kernels a call) | largest kernels "
-        f"outside gemm and flash (ms, count, name): "
+        f"{counts['flash_bwd']} over {bwd_calls} backward calls "
+        f"({counts['flash_bwd'] / max(bwd_calls, 1):g} kernels a call; "
+        f"ms and launches by kernel {json.dumps(bwd_split)}) | "
+        f"flash forward calls {len(cpu_calls)}, their device-side ranges "
+        f"{len(copies)}, flash forward kernels {fwd_kernels}; calls (index "
+        f"in the step, kind) with no device-side range {lost} | largest "
+        f"kernels outside gemm and flash (ms, count, name): "
         + "; ".join(f"{ms:.2f}, {cnt}, {name}" for ms, cnt, name in others))
     return params, opt
 
@@ -3977,7 +4037,7 @@ def train_phase(torch, dev, card_line: str) -> None:
         warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS, device=dev)
     batch = TokenPipeline(dcfg).batch(1)
     params, opt, _ = step_fn(params, opt, batch0)      # warm
-    train_breakdown(torch, step_fn, params, opt, batch)
+    train_breakdown(torch, step_fn, params, opt, batch, med * 1e3)
     del params, opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -4188,7 +4248,9 @@ def main() -> None:
             "library_ms", "serve_launches", "dist_launches")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build "
         f"{build_s:.1f} s)")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + (("floor_ms",) if "floor_ms" in r else ())}
+        for r in rows]}))   # floor_ms: the flash backward's 7-product floor
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

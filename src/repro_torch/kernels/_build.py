@@ -3,8 +3,9 @@
 Every `csrc/*.cu` exposes a plain C interface (`extern "C"`, pointers,
 ints, a stream, an error code back), so no PyTorch header is compiled:
 one `nvcc -c` per source, all started together, then one link into a
-single shared library. The library's name carries a hash of the sources
-and flags, so an edited source is never served from a stale build. The
+single shared library. The library's name carries a hash of the sources,
+the headers they share (`csrc/*.cuh`) and the flags, so an edited source
+or header is never served from a stale build. The
 build lands in `kernels/build/` inside the package (ignored by git); a
 process that finds the library there loads it without compiling.
 
@@ -43,7 +44,7 @@ SIGNATURES = {
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _I, _P],
     "repro_flash_attention_bwd_f32": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
-    "repro_flash_attention_bwd_bf16": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    "repro_flash_attention_bwd_bf16": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -61,16 +62,22 @@ def nvcc_path() -> str:
     return found
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest(sources: list[Path], flags: list[str]) -> str:
+def _digest(files: list[Path], flags: list[str]) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for s in sources:
+    for s in files:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
+
+
+def library_path(flags: list[str], csrc: Path = CSRC) -> Path:
+    """Where the build of `csrc`'s sources and headers with `flags` is."""
+    files = _sources(csrc) + sorted(csrc.glob("*.cuh"))
+    return BUILD_DIR / f"librepro_kernels_{_digest(files, flags)}.so"
 
 
 def _run_all(cmds: list[list[str]]) -> list[str]:
@@ -96,7 +103,7 @@ def build(verbose: bool = False, defines: tuple[str, ...] = ()) -> Path:
     port's library (`lib()`) is built without any."""
     sources = _sources()
     flags = [*NVCC_FLAGS, *(f"-D{name}" for name in defines)]
-    lib_path = BUILD_DIR / f"librepro_kernels_{_digest(sources, flags)}.so"
+    lib_path = library_path(flags)
     if lib_path.exists():
         return lib_path
     nvcc = nvcc_path()
@@ -104,8 +111,8 @@ def build(verbose: bool = False, defines: tuple[str, ...] = ()) -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in sources]
         ptxas = ["-Xptxas", "-v"] if verbose else []
-        outs = _run_all([[nvcc, *flags, *ptxas, "-c", str(s), "-o",
-                          str(o)] for s, o in zip(sources, objs)])
+        outs = _run_all([[nvcc, *flags, *ptxas, f"-I{CSRC}", "-c", str(s),
+                          "-o", str(o)] for s, o in zip(sources, objs)])
         if verbose:
             print("".join(outs), flush=True)
         tmp_lib = Path(tmp) / lib_path.name

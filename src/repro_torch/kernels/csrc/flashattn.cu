@@ -73,16 +73,12 @@
 // rows by d/16 output columns (tx + 16 c). Q (once), then K (transposed),
 // then V (same buffer) and the weights P (transposed) are staged in shared
 // memory; masked scores are -1e30 and P stays float32 into the PV product.
-#include <cuda.h>  // CUtensorMap and its enums (no link against libcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// The TMA, mbarrier and wgmma helpers and the tensor-map encoder are in
+// hopper.cuh, shared with the backward (flashattn_bwd.cu).
+#include "hopper.cuh"
 
 namespace {
-
-struct Strides {
-  long long b, h, s;
-};
 
 // ------------------------------------------------------------ float32 route
 
@@ -283,17 +279,6 @@ constexpr int kWBK = 128;         // keys per KV tile
 constexpr int kWConsumers = 256;  // two consumer warpgroups
 constexpr int kWThreads = kWConsumers + 32;  // and one producer warp
 constexpr int kStages = 2;        // K/V ring depth
-constexpr int kBox = 64;          // TMA box columns: 128 B, the swizzle span
-constexpr int kRowBytes = kBox * 2;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// A (B, H, S, d) tensor as a tensor map: pos[0..2] is the map dim (1..3)
-// of S, H and B; dim 0 is d.
-struct TmaView {
-  CUtensorMap map;
-  int pos[3];
-};
 
 struct WParams {
   TmaView q, k, v;
@@ -303,191 +288,6 @@ struct WParams {
   int heads, kv_heads, len_q, len_k, head_dim, causal;
   float scale_log2;  // scale * log2(e)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of (64 columns, rows) of a (B, H, S, d) view into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const TmaView& t,
-                                         int col, int row, int head,
-                                         int batch, uint32_t bar) {
-  int c[4];
-  c[0] = col;
-  c[t.pos[0]] = row;
-  c[t.pos[1]] = head;
-  c[t.pos[2]] = batch;
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&t.map)), "r"(c[0]), "r"(c[1]),
-      "r"(c[2]), "r"(c[3]), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (in 16-byte units), layout 1.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from touching wgmma accumulators across the async
-// window: each register is "written" here, after the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// m64n128k16, A and B from shared memory (both K-major)
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t desc_a,
-                                              uint64_t desc_b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// m64n64k16, A from registers, B from shared memory (MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                              uint64_t desc_b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
-}
-
-// m64n128k16, A from registers, B from shared memory (MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t desc_b,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
-}
-
-
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
-                                         uint64_t desc_b) {
-  if constexpr (N == 64)
-    wgmma_rs_n64(d, a, desc_b, 1);
-  else
-    wgmma_rs_n128(d, a, desc_b, 1);
-}
 
 // Max and sum over the 4 lanes of a quad (the lanes that hold one row of
 // an accumulator fragment); every lane ends with the same bits.
@@ -713,76 +513,6 @@ flash_wgmma_kernel(const __grid_constant__ WParams p) {
     if (row_a < p.len_q) lg[row_a] = m_a * kLn2 + logf(den_a);
     if (row_a + 8 < p.len_q) lg[row_a + 8] = m_b * kLn2 + logf(den_b);
   }
-}
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no link against libcuda.
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// Error codes of the bf16 launcher beyond cudaError_t (the wrapper names
-// them): no encoder in the driver, and 20000 + the CUresult of a failed
-// encode.
-constexpr int kErrNoEncoder = 19999;
-constexpr int kErrEncode = 20000;
-
-// A (B, H, S, d) bf16 view as a rank-4 tensor map with boxes of 64
-// columns by `rows` sequence positions: d innermost, then S, H and B in
-// the order of their strides (the wrapper has checked that each stride of
-// a dim longer than 1 is a multiple of 16 bytes and the base is 16-byte
-// aligned). A dim of size 1 is never stepped, so it takes the largest span
-// as its stride.
-int encode_view(TmaView* view, const void* ptr, int batch, int heads,
-                int len, int head_dim, Strides st, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kErrNoEncoder;
-  long long size[3] = {len, heads, batch};
-  long long stride[3] = {st.s, st.h, st.b};
-  long long span = head_dim;
-  for (int i = 0; i < 3; ++i)
-    if (size[i] > 1 && stride[i] * size[i] > span) span = stride[i] * size[i];
-  for (int i = 0; i < 3; ++i)
-    if (size[i] == 1) stride[i] = span;
-  int order[3] = {0, 1, 2};
-  for (int i = 1; i < 3; ++i)  // stable insertion sort by stride
-    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
-      const int tmp = order[j];
-      order[j] = order[j - 1];
-      order[j - 1] = tmp;
-    }
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim), 0, 0, 0};
-  cuuint64_t strides[3];
-  for (int r = 0; r < 3; ++r) {
-    dims[r + 1] = static_cast<cuuint64_t>(size[order[r]]);
-    strides[r] = static_cast<cuuint64_t>(stride[order[r]]) * 2;
-    view->pos[order[r]] = r + 1;
-  }
-  cuuint32_t box[4] = {kBox, 1, 1, 1};  // rows along S, wherever it sorts
-  box[view->pos[0]] = static_cast<cuuint32_t>(rows);
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      &view->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(res);
 }
 
 template <int NP>

@@ -21,11 +21,15 @@ any other view rather than take another path.
 `flash_attention_lse` also returns each row's log-sum-exp (B, H, Sq)
 float32 (the output is the same bits), and `flash_attention_bwd` is the
 backward over `csrc/flashattn_bwd.cu`: (dq, dk, dv) from q, k, v, the
-output, its LSE and dO, in float32 on the CUDA cores for either input
-type, with no atomics (bit-identical run to run). Its plain version is
+output, its LSE and dO, with no atomics (bit-identical run to run). bf16
+runs on the tensor cores (wgmma with TMA loads, as the forward; the
+weights P and dS enter their products rounded once to bf16, every sum is
+float32), float32 on the CUDA cores. Its plain version is
 `flashattn_ref.flash_attention_bwd_ref`. It takes any strides with a
-contiguous last dim and returns dq laid out as (B, Sq, H, d) and dk, dv
-as (B, Sk, Hkv, d), as the forward lays out its output.
+contiguous last dim (bf16 under the forward's TMA rules; a dO broadcast
+along a dim, as the gradient of a sum is, is laid out first) and returns
+dq laid out as (B, Sq, H, d) and dk, dv as (B, Sk, Hkv, d), as the
+forward lays out its output.
 """
 from __future__ import annotations
 
@@ -39,10 +43,11 @@ from repro_torch.kernels._checks import require_cuda_float
 
 LAUNCHES = 0   # kernel launches by this process (chip_smoke reads it)
 LAUNCHES_BY_D: dict[int, int] = {}   # those of them by head dim
-BWD_LAUNCHES = 0   # backward calls that launched (three kernels each)
+BWD_LAUNCHES = 0   # backward calls that launched (3 or 4 kernels each)
 BWD_LAUNCHES_BY_D: dict[int, int] = {}   # those of them by head dim
 
 HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's head dims
+BWD_TILE = 64   # query rows per tile of the bf16 backward (its LSE/D pad)
 # how the bf16 kernel feeds the weights P to the PV product (PERF.md)
 PV_DESIGN = ("P split into bf16 hi + lo, two PV wgmmas per 16 keys "
              "(m64nNk16, A from registers)")
@@ -110,7 +115,7 @@ def launch_with(library, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sk == 0:
         raise ValueError("flash_attention: no keys (Sk = 0)")
     if q.dtype == torch.bfloat16:
-        _require_tma_layout(q=q, k=k, v=v)
+        _require_tma_layout("flash_attention", q=q, k=k, v=v)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -121,13 +126,7 @@ def launch_with(library, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = library().repro_flash_attention_f32(*args)
     else:
         err = library().repro_flash_attention_bf16(*args)
-    if err >= _ERR_NO_ENCODER:
-        raise RuntimeError(
-            "flash_attention: the driver has no cuTensorMapEncodeTiled"
-            if err == _ERR_NO_ENCODER else
-            f"flash_attention: cuTensorMapEncodeTiled failed with CUresult "
-            f"{err - _ERR_ENCODE}")
-    _build.check(err, "flash_attention")
+    _check(err, "flash_attention")
     return out, lse, True
 
 
@@ -137,7 +136,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of `flash_attention(q, k, v, causal=causal)` = o, given
     the forward's lse and the output's gradient do. Counted in
-    BWD_LAUNCHES (one per call that launches, three kernels each)."""
+    BWD_LAUNCHES (one per call that launches: bf16 runs LSE and D, dK and
+    dV, their sum over a KV head's query heads when H > Hkv, and dQ;
+    float32 D, dK and dV, and dQ)."""
     global BWD_LAUNCHES
     dev = require_cuda_float("flash_attention_bwd", q=q, k=k, v=v, o=o,
                              do=do)
@@ -157,37 +158,69 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(dk)
     if b * h * sq == 0 or sk == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    if q.dtype == torch.bfloat16:
+        do = _unbroadcast(do)
+        _require_tma_layout("flash_attention_bwd", q=q, k=k, v=v, o=o,
+                            do=do)
+        # LSE log2(e) and D, padded to whole tiles; per-head dK, dV partials
+        sq_pad = -(-sq // BWD_TILE) * BWD_TILE
+        scratch = [torch.empty((2, b, h, sq_pad), dtype=torch.float32,
+                               device=dev),
+                   torch.empty((2, b, h, sk, d), dtype=torch.float32,
+                               device=dev) if h != hkv else None]
+        fn = _build.lib().repro_flash_attention_bwd_bf16
+    else:
+        scratch = [torch.empty((b, h, sq), dtype=torch.float32, device=dev)]
+        fn = _build.lib().repro_flash_attention_bwd_f32
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
-    fn = (_build.lib().repro_flash_attention_bwd_f32
-          if q.dtype == torch.float32 else
-          _build.lib().repro_flash_attention_bwd_bf16)
-    err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk,
-                                      dv)),
+    err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse)),
+             *(t.data_ptr() if t is not None else None for t in scratch),
+             *(t.data_ptr() for t in (dq, dk, dv)),
              ctypes.addressof(strides), b, h, hkv, sq, sk, d, int(causal),
              1.0 / math.sqrt(d), *_build.device_and_stream(q))
-    _build.check(err, "flash_attention_bwd")
+    _check(err, "flash_attention_bwd")
     BWD_LAUNCHES += 1
     BWD_LAUNCHES_BY_D[d] = BWD_LAUNCHES_BY_D.get(d, 0) + 1
     return dq, dk, dv
 
 
-# error codes of the bf16 launcher beyond cudaError_t (csrc/flashattn.cu)
+# error codes of the bf16 launchers beyond cudaError_t (csrc/hopper.cuh)
 _ERR_NO_ENCODER, _ERR_ENCODE = 19999, 20000
 
 
-def _require_tma_layout(**tensors: torch.Tensor) -> None:
+def _check(err: int, name: str) -> None:
+    if err >= _ERR_NO_ENCODER:
+        raise RuntimeError(
+            f"{name}: the driver has no cuTensorMapEncodeTiled"
+            if err == _ERR_NO_ENCODER else
+            f"{name}: cuTensorMapEncodeTiled failed with CUresult "
+            f"{err - _ERR_ENCODE}")
+    _build.check(err, name)
+
+
+def _unbroadcast(t: torch.Tensor) -> torch.Tensor:
+    """`t`, laid out anew if it repeats itself along a dim longer than 1
+    (stride 0, as the gradient of a sum does): `_require_tma_layout` lets
+    such a stride through, and the backward encodes its tensor maps over
+    laid-out data only."""
+    if any(size > 1 and stride == 0
+           for size, stride in zip(t.shape, t.stride())):
+        return t.contiguous()
+    return t
+
+
+def _require_tma_layout(name: str, **tensors: torch.Tensor) -> None:
     """TMA's rules for a bf16 input: a 16-byte aligned base, and a stride
     that is a multiple of 16 bytes for every dim longer than 1."""
     for arg, t in tensors.items():
         if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {arg} starts at an address "
+            raise ValueError(f"{name}: {arg} starts at an address "
                              f"that is not 16-byte aligned (TMA needs it)")
         for size, stride in zip(t.shape[:3], t.stride()[:3]):
             if size > 1 and (stride * t.element_size()) % 16:
                 raise ValueError(
-                    f"flash_attention: {arg} has strides {t.stride()}; TMA "
+                    f"{name}: {arg} has strides {t.stride()}; TMA "
                     f"needs every stride of a dim longer than 1 to be a "
                     f"multiple of 16 bytes ({16 // t.element_size()} "
                     f"elements)")

@@ -34,17 +34,26 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def _is_namedtuple(node) -> bool:
+    # the rule of ckpt/checkpoint.py: a NamedTuple takes its fields as
+    # arguments, a plain tuple or list one iterable
+    return isinstance(node, tuple) and hasattr(type(node), "_fields")
+
+
 def tree_map(fn: Callable, tree, *rest):
     """fn over the leaves of `tree` and the matching leaves of `rest`
     (same structure), called in `tree_leaves` order, rebuilt in `tree`'s
-    structure (dicts keep their key order)."""
+    structure (dicts keep their key order; a NamedTuple such as
+    `AdamWState` stays one)."""
     if isinstance(tree, dict):
         done = {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
         return {k: done[k] for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, c, *(r[i] for r in rest))
-                          for i, c in enumerate(tree))
+        children = [tree_map(fn, c, *(r[i] for r in rest))
+                    for i, c in enumerate(tree)]
+        return (type(tree)(*children) if _is_namedtuple(tree)
+                else type(tree)(children))
     return fn(tree, *rest)
 
 

@@ -10,6 +10,13 @@ rtol 1e-5 with atol 1e-6 of the gradient's largest magnitude (both sides
 float32, sums in another order). The row log-sum-exp is held the same
 way. The card's kernels are held to this plain backward in
 `tests/test_torch_gpu.py` and chip_smoke.py's phase 32.
+
+A plain model of the bf16 kernel route's rounding (P and dS rounded to
+bf16 for their products, every sum float32, the gradients rounded once
+to bf16) is held to the plain backward and to the float64 gradient under
+the card's bf16 limits (`FLASH_BWD_TOL` of `tests/test_torch_gpu.py`:
+2^-7 and 2^-6 of the gradient's largest magnitude), and the bf16 route's
+layout checks run on CPU tensors.
 """
 import functools
 import math
@@ -142,3 +149,99 @@ def test_backward_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         flashattn.flash_attention_lse(q, k, v)
     assert flashattn.BWD_LAUNCHES == before
+
+
+# (B, H, Hkv, Sq, Sk, d, causal): GQA with ragged tiles, causal with
+# Sq < Sk (keys no query sees), and hubert's d = 80 not causal
+ROUTE_CASES = [
+    (1, 6, 2, 70, 70, 64, True),
+    (1, 3, 1, 40, 100, 32, True),
+    (1, 2, 2, 48, 48, 80, False),
+]
+ROUTE_TOL = (2.0 ** -7, 2.0 ** -6)   # against plain, against float64
+
+
+def _route_model(q, k, v, o, lse, do, causal):
+    """The bf16 route's arithmetic: S, dP from bf16 inputs in float32,
+    P = exp2(S·scale·log2 e − LSE·log2 e), dS = P∘(dP − D); P and dS
+    rounded to bf16 for dV = PᵀdO, dK = scale·dSᵀQ, dQ = scale·dS K;
+    a KV head's dK, dV summed over its query heads in order."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale, log2e = 1.0 / math.sqrt(d), 1.4426950408889634
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    p = torch.exp2((qf @ kf.transpose(-1, -2)) * (scale * log2e)
+                   - (lse * log2e)[..., None])
+    if causal:
+        p = p * (torch.arange(sq)[:, None] >= torch.arange(sk)[None])
+    ds = p * (dof @ vf.transpose(-1, -2)
+              - (dof * of).sum(-1, keepdim=True))
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dq = (ds16 @ kf) * scale
+    dk_g = ((ds16.transpose(-1, -2) @ qf) * scale).reshape(b, hkv, g, sk, d)
+    dv_g = (p16.transpose(-1, -2) @ dof).reshape(b, hkv, g, sk, d)
+    dk, dv = dk_g[:, :, 0], dv_g[:, :, 0]
+    for i in range(1, g):
+        dk, dv = dk + dk_g[:, :, i], dv + dv_g[:, :, i]
+    return [x.bfloat16() for x in (dq, dk, dv)]
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_bf16_route_rounding_stays_inside_the_gates(case):
+    *shape, causal = case
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _inputs(*shape, seed=100 + sum(shape)))
+    o, lse = attention_ref_lse(q, k, v, causal=causal)
+    got = _route_model(q, k, v, o, lse, do, causal)
+    plain = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                    o.float(), lse, do.float(),
+                                    causal=causal)
+    q6, k6, v6 = q.double(), k.double(), v.double()
+    o6, lse6 = attention_ref_lse(q6, k6, v6, causal=causal)
+    exact = flash_attention_bwd_ref(q6, k6, v6, o6, lse6, do.double(),
+                                    causal=causal)
+    for x, p, e in zip(got, plain, exact):
+        assert _rel(x, p) <= ROUTE_TOL[0] and _rel(x, e) <= ROUTE_TOL[1]
+    if causal and shape[3] < shape[4]:     # keys past Sq: no query sees them
+        assert not got[1][:, :, shape[3]:].any()
+        assert not got[2][:, :, shape[3]:].any()
+
+
+def test_bf16_backward_layout_check_refuses_what_tma_cannot_read():
+    """The checks the bf16 backward applies to q, k, v, o and dO before
+    it encodes a tensor map, on CPU tensors passed to the checks."""
+    ok = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)
+    flashattn._require_tma_layout("flash_attention_bwd", q=ok, do=ok)
+    wide = torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="flash_attention_bwd: do has "
+                                         "strides"):
+        flashattn._require_tma_layout("flash_attention_bwd", q=ok, do=wide)
+    flat = torch.zeros(2 * 8 * 16 + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + 2 * 8 * 16].view(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        flashattn._require_tma_layout("flash_attention_bwd", k=shifted)
+
+
+def test_broadcast_cotangent_is_laid_out_for_the_tensor_maps():
+    """A dO that repeats along a dim longer than 1 (the gradient of
+    `(out.sum(dim=(0, 1, 2)) * w).sum()` has strides (0, 0, 0, 1)) passes
+    TMA's stride rule, so the wrapper lays it out itself; other views
+    pass through untouched."""
+    w = torch.arange(16, dtype=torch.bfloat16)
+    do = w.expand(1, 2, 8, 16)
+    assert do.stride() == (0, 0, 0, 1)
+    flashattn._require_tma_layout("flash_attention_bwd", do=do)
+    laid = flashattn._unbroadcast(do)
+    assert laid.is_contiguous() and torch.equal(laid, do)
+    view = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16).transpose(1, 2)
+    assert flashattn._unbroadcast(view) is view
+    one = torch.zeros((1, 1, 8, 16), dtype=torch.bfloat16).expand(3, 1, 8, 16)
+    assert flashattn._unbroadcast(one).is_contiguous()

@@ -778,7 +778,9 @@ def test_flash_at_hubert_head_dim(cuda, causal, dtype):
 # The backward against the plain backward on the same inputs (the
 # kernel's O and LSE): float32 1e-5 of the largest magnitude (sums in
 # another order); bf16 2^-7, the gradients being rounded once to bf16
-# (2^-9 to 2^-8 of a value) from float32 sums. Against the float64
+# (2^-9 to 2^-8 of a value) from float32 sums, and the tensor-core route
+# rounding P and dS to bf16 for their products (2e-3 to 4e-3 in all in a
+# CPU model of it, tests/test_torch_flash_bwd.py). Against the float64
 # gradient of the exact forward: float32 1e-5; bf16 2^-6, since
 # D = rowsum(dO∘O) then takes the bf16-rounded O, whose error the
 # difference dP − D can bring near the size of dS.
@@ -845,6 +847,81 @@ def test_flash_backward_at_qwen2_training_layer(cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
     _flash_bwd_check(cuda, torch.bfloat16, 2, 12, 2, 4096, 4096, 128, True,
                      seed=4096)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [1, 3, 6])
+def test_flash_backward_zero_key_tiles(cuda, group):
+    """bf16, causal with Sq < Sk: keys 70 to 299 (part of the second
+    64-key tile and three whole tiles) see no query, so their dK and dV
+    are exactly 0, though the gradients come from torch.empty."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = _flash_bwd_check(cuda, torch.bfloat16, 1, 6, 6 // group, 70, 300,
+                           64, True, seed=group)
+    for t in got[1:]:
+        assert bool((t[:, :, 70:] == 0).all())
+        assert float(t[:, :, :70].abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("group", [1, 3, 6])
+def test_flash_backward_head_groups(cuda, group, d):
+    """bf16, 6 query heads on 6 / group KV heads: G = 1 stores dK and dV
+    from the dK/dV kernel, G > 1 sums per-head partials in order; causal
+    and not, 150 rows (a ragged third tile), at every head dim."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for causal in (True, False):
+        _flash_bwd_check(cuda, torch.bfloat16, 2, 6, 6 // group, 150, 150, d,
+                         causal, seed=10 * group + d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [1, 127, 128, 129])
+def test_flash_backward_tile_edges(cuda, length):
+    """bf16 lengths at the edges of the 64-row tiles, GQA 4:2, d 128:
+    `length` queries over 129 keys, and (length > 1) 129 queries over
+    `length` keys and `length` of both, causal. One key alone has
+    dQ = dK = 0, which a check relative to the largest magnitude cannot
+    hold, so length 1 runs as Sq only."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _flash_bwd_check(cuda, torch.bfloat16, 1, 4, 2, length, 129, 128, False,
+                     seed=length)
+    if length > 1:
+        _flash_bwd_check(cuda, torch.bfloat16, 1, 4, 2, 129, length, 128,
+                         False, seed=length + 1)
+        _flash_bwd_check(cuda, torch.bfloat16, 1, 4, 2, length, length, 128,
+                         True, seed=length + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sum", "weighted sum"])
+def test_flash_backward_of_broadcast_cotangents(cuda, kind):
+    """bf16: the gradient of `out.sum()` (strides all 0) and of
+    `(out.sum(dim=(0, 1, 2)) * w).sum()` with w of shape (d,) (strides
+    (0, 0, 0, 1), which TMA's stride rule lets through) each reach the
+    backward kernel once and match the plain backward of that cotangent."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = np.random.default_rng(5)
+    b, h, hkv, s, d = 2, 6, 2, 150, 64
+    q, k, v = (_t(g.standard_normal(shape).astype(np.float32)).to(cuda)
+               .bfloat16() for shape in ((b, h, s, d), (b, hkv, s, d),
+                                         (b, hkv, s, d)))
+    w = _t(g.standard_normal(d).astype(np.float32)).to(cuda).bfloat16()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves)
+    loss = (out.sum() if kind == "sum"
+            else (out.sum(dim=(0, 1, 2)) * w).sum())
+    before = flashattn.BWD_LAUNCHES
+    loss.backward()
+    assert flashattn.BWD_LAUNCHES == before + 1
+    do = torch.ones_like(out) if kind == "sum" else w.expand(out.shape)
+    o, lse = flashattn.flash_attention_lse(q, k, v)
+    plain = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                    o.float(), lse, do.float())
+    for t, p in zip(leaves, plain):
+        assert t.grad.dtype == torch.bfloat16
+        assert _rel(t.grad, p) <= FLASH_BWD_TOL[torch.bfloat16][0]
 
 
 @pytest.mark.gpu

@@ -452,6 +452,30 @@ def test_kernel_variant_ids_match_the_cuda_source(mod, src):
             assert f"case k{name[0].upper()}{name[1:]}:" in text
 
 
+def test_build_key_covers_the_shared_headers(tmp_path):
+    """The library's name hashes the sources, the headers they include
+    (`csrc/*.cuh`) and the flags: an edit to a header gives a new name,
+    so no stale build is loaded. On a copy of `csrc` (no `nvcc` here)."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["hopper.cuh"]
+    flags = _build.NVCC_FLAGS
+    name = _build.library_path(flags, csrc)
+    assert _build.library_path(flags, csrc) == name
+    assert name == _build.library_path(flags)      # the copy is the tree
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    edited = _build.library_path(flags, csrc)
+    assert edited != name
+    (csrc / "flashattn_bwd.cu").write_text(
+        (csrc / "flashattn_bwd.cu").read_text() + "\n// edited\n")
+    assert _build.library_path(flags, csrc) not in (name, edited)
+    assert _build.library_path([*flags, "-DX"], csrc) != \
+        _build.library_path(flags, csrc)
+
+
 def test_alignment_of_views_picks_the_generic_kernel():
     """A view that starts 4 or 8 bytes into its buffer is off a 16-byte
     boundary, so the wrappers' `aligned16` sends it to "generic"; a whole
