@@ -65,9 +65,9 @@ otherwise. Phases, each of which fails the run:
      scaled_dot_product_attention and the card's bound, with its TFLOP/s
      and the PV design the bf16 kernel ships (P split into bf16 hi + lo);
      then at hubert-xlarge's head dim 80 (q, k, v (2, 16, 2048, 80)),
-     bf16 and float32, causal and not, each within FLASH_TOL of the plain
-     version, the bf16 non-causal one (hubert's prefill) timed the same
-     way;
+     bf16 and float32, causal and not, each within FLASH_TOL (bf16) or
+     FLASH_F32_TOL (float32) of the plain version, the bf16 non-causal
+     one (hubert's prefill) timed the same way;
  12. yi-9b serving at full width and all 48 layers in bf16, weights drawn
      on the card by `init_model` from a seed: 4 requests of 2,048 prompt
      tokens through `prefill_with_cache(..., cache_len=2080)`, then 32
@@ -292,7 +292,10 @@ Training, after 31:
      unchanged by storing LSE; the qwen2 and float32 shapes timed with
      L2 flushed beside the plain backward, SDPA's backward (the library
      row), the bound (5 products) and the design's floor (7: dQ
-     recomputes S and dP, so that no sum needs an atomic). 32b,
+     recomputes S and dP, so that no sum needs an atomic), each logged
+     with its device kernels per call and device ms by kernel; the
+     float32 forward at the float32 shape timed the same way beside its
+     plain version, SDPA's forward and its bound (2 products). 32b,
      qwen2-1.5b cut to 2 layers at
      full widths in float32 with remat: every leaf's gradient over one
      sequence of 1,024 tokens on the card (kernels) against the host
@@ -318,7 +321,8 @@ Training, after 31:
 Then one JSON line of kernels (the four PR-15 rows, the nine width rows
 of 14, flash attention at yi-9b's shape and at hubert's head dim 80, the
 flash backward at qwen2's training layer (its launches 32c's) and in
-float32 (its launches 32b's); each row's `serve_launches` the launches
+float32 (its launches 32b's), the float32 forward at 32b's shape (its
+launches 32b's); each row's `serve_launches` the launches
 at its width in phase 29, its `dist_launches` those in phase 30a), the
 card line, and the final result line.
 """
@@ -425,6 +429,10 @@ FLASH_SERVE = (4, 32, 4, 2048, 128)
 # value (2^-8 only just above a power of two); the f32 arithmetic of
 # kernel and plain version differ by ~1e-6
 FLASH_TOL = 2.0 ** -8          # of the output's largest magnitude
+# float32 inputs: kernel and plain version differ only in the order of
+# their float32 sums and in exp2 against exp (tests/test_torch_gpu.py's
+# float32 limit)
+FLASH_F32_TOL = 2e-5           # of the output's largest magnitude
 
 # yi-9b serving: prompt tokens per request, requests, decode steps, seed
 SERVE_PROMPT, SERVE_BATCH, SERVE_DECODE, SERVE_SEED = 2048, 4, 32, 0
@@ -3099,10 +3107,11 @@ def flash_phase(torch, timer, dev):
                 fail(f"flash_attention at d = {d} {dtype} did not launch "
                      f"once or returned {tuple(out.shape)}")
             abs_d, rel = err(out, qd, kd, vd, causal)
+            tol = FLASH_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
             log(f"kernel flash_attention: q {(b, h, s, d)} {dtype} "
                 f"{'causal' if causal else 'not causal'} | rel err "
-                f"{rel:.3e} (tol {FLASH_TOL:g}), max abs err {abs_d:.3e}")
-            if not rel <= FLASH_TOL:
+                f"{rel:.3e} (tol {tol:g}), max abs err {abs_d:.3e}")
+            if not rel <= tol:
                 fail(f"flash_attention at d = {d} disagrees with its plain "
                      f"version: {rel}")
             if dtype == torch.bfloat16 and not causal:
@@ -3256,8 +3265,7 @@ def serve_breakdown(torch, tf, params, cfg, prompt, steps: int = 4,
     idle share says how far the host holds the card back). Returns the
     idle share by phase."""
     from torch.profiler import ProfilerActivity, profile
-    kinds = {"flash_attention": ("flash_attention_kernel",
-                                 "flash_wgmma_kernel"),
+    kinds = {"flash_attention": ("flash_f32_kernel", "flash_wgmma_kernel"),
              "gemm": ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass"),
              "memcpy": ("Memcpy", "Memset")}
     cache_len = prompt.shape[1] + steps
@@ -3668,7 +3676,9 @@ def flash_bwd_phase(torch, timer, dev) -> list:
     gradient at FLASH_BWD_SHAPES, bit-identical run to run, the forward's
     LSE against the plain one and its O unchanged by storing LSE; the
     first and last shapes timed (L2 flushed) beside the plain backward,
-    SDPA's backward and the bound. Returns their kernel rows."""
+    SDPA's backward and the bound, and the last (float32) shape's forward
+    beside its plain version, SDPA's forward and its bound. Returns their
+    kernel rows."""
     import torch.nn.functional as F
     from repro_torch.kernels import flashattn
     from repro_torch.kernels.flashattn_ref import (attention_ref_lse,
@@ -3731,6 +3741,9 @@ def flash_bwd_phase(torch, timer, dev) -> list:
             rows.append(_flash_bwd_row(torch, F, timer, flashattn,
                                        flash_attention_bwd_ref, q, k, v, o,
                                        lse, do, causal, dt, abs_err, label))
+        if label == FLASH_BWD_SHAPES[-1][0]:
+            rows.append(_flash_f32_fwd_row(torch, F, timer, flashattn, q, k,
+                                           v, causal, label))
         del q, k, v, do, o, lse, got
         torch.cuda.empty_cache()
     return rows
@@ -3758,6 +3771,11 @@ def _flash_bwd_row(torch, F, timer, flashattn, bwd_ref, q, k, v, o, lse, do,
     peak = BF16_FLOPS_PER_S if dt == "bfloat16" else F32_FLOPS_PER_S
     bms, by = bound_ms(nbytes, flops, peak)
     floor_ms = bound_ms(nbytes, 14 * d * pairs, peak)[0]   # 7 products
+    per_call, split = kernel_split(
+        torch, lambda: flashattn.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     causal=causal))
+    log(f"kernel flash_attention_bwd: {label} | device kernels per call "
+        f"{per_call:g}; device ms per call by kernel {json.dumps(split)}")
     log(f"kernel flash_attention_bwd: {label} | {ms:.3f} ms = "
         f"{flops / ms / 1e9:.1f} TFLOP/s of the 5-product work "
         f"({1.4 * flops / ms / 1e9:.1f} of the 7 it does), plain "
@@ -3778,9 +3796,92 @@ def _flash_bwd_row(torch, F, timer, flashattn, bwd_ref, q, k, v, o, lse, do,
             "floor_ms": floor_ms}
 
 
+def _flash_f32_fwd_row(torch, F, timer, flashattn, q, k, v, causal,
+                       label) -> dict:
+    """The float32 forward at one shape (L2 flushed) against its plain
+    version (FLASH_F32_TOL), bit-identical run to run, timed beside the
+    plain version, SDPA's forward and the bound: 2 products, 4 d flop a
+    kept pair, at the float32 peak."""
+    from repro_torch.kernels.flashattn_ref import attention_ref_lse
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    out = flashattn.flash_attention(q, k, v, causal=causal)
+    same = torch.equal(out, flashattn.flash_attention(q, k, v,
+                                                      causal=causal))
+    want = attention_ref_lse(q, k, v, causal=causal)[0]
+    abs_err = float((out - want).abs().max())
+    rel = abs_err / float(want.abs().max())
+    del out, want
+    ms = timer.ms(lambda: flashattn.flash_attention(q, k, v, causal=causal))
+    plain = timer.ms(lambda: attention_ref_lse(q, k, v, causal=causal),
+                     reps=3)
+    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True))
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    nbytes = (2 * b * h * s * d + 2 * b * hkv * s * d) * 4
+    bms, by = bound_ms(nbytes, 4 * d * pairs, F32_FLOPS_PER_S)
+    per_call, split = kernel_split(torch, lambda: flashattn.flash_attention(
+        q, k, v, causal=causal))
+    log(f"kernel flash_attention: {label} forward q {(b, h, s, d)} k/v "
+        f"{(b, hkv, s, d)} float32 {'causal' if causal else 'not causal'} "
+        f"| rel err {rel:.3e} (tol {FLASH_F32_TOL:g}), max abs err "
+        f"{abs_err:.3e}, bit-identical run to run: {same} | {ms:.4f} ms = "
+        f"{4 * d * pairs / ms / 1e9:.1f} TFLOP/s, plain {plain:.3f} ms, "
+        f"library scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}, float32 peak) | device kernels per call "
+        f"{per_call:g}; device ms per call by kernel {json.dumps(split)}")
+    if not (same and rel <= FLASH_F32_TOL):
+        fail(f"the float32 flash forward at {label} failed its gates")
+    key = (d, "float32")
+    return {"name": "flash_attention_f32", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flashattn.cu",
+            "replaces": "src/repro/kernels/flashattn.py:28",
+            "count": lambda: TRAIN_FWD_LAUNCHES.get(key, 0),
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+def kernel_split(torch, fn, calls: int = 4, windows: int = 3
+                 ) -> tuple[float, dict]:
+    """Device kernels per call of fn and its device ms per call by
+    kernel, over a profiled window of `calls` calls (a log). CPU and CUDA
+    activities, as train_breakdown's: in this script's runs a CUDA-only
+    window opened in phase 32 recorded no kernel at all. Fills open and
+    close the window (see kernels_per_call), and a window with none of
+    fn's kernels is profiled again, up to `windows` times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    word = torch.empty(1, device="cuda")
+    for window in range(1, windows + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            word.fill_(1.0)
+            for _ in range(calls):
+                fn()
+            word.fill_(1.0)
+            torch.cuda.synchronize()
+        split, n = {}, 0
+        for e in prof.key_averages():
+            if ("CUDA" not in str(getattr(e, "device_type", ""))
+                    or e.key.startswith(("Memcpy", "Memset"))
+                    or "FillFunctor" in e.key):
+                continue
+            name = re.sub(r"^void |\(.*$", "",
+                          e.key.replace("(anonymous namespace)::", ""))
+            split[name] = round(e.self_device_time_total / 1e3 / calls, 4)
+            n += e.count
+        if n:
+            break
+        log(f"kernel_split: profile window {window} of {windows} recorded "
+            f"none of the {calls} calls' kernels")
+    return n / calls, split
+
+
 # backward launches of phase 32's runs by (head dim, dtype): 32c's trainer
-# (bf16) and 32b's card gradients (float32)
+# (bf16) and 32b's card gradients (float32); and 32b's forward launches
 TRAIN_BWD_LAUNCHES: dict = {}
+TRAIN_FWD_LAUNCHES: dict = {}
 
 
 def _rel_fro(torch, got, want) -> float:
@@ -3819,6 +3920,7 @@ def train_grad_phase(torch, dev) -> None:
     torch.cuda.synchronize()
     fwd, bwd = flashattn.LAUNCHES, flashattn.BWD_LAUNCHES
     TRAIN_BWD_LAUNCHES[(cfg.hd, "float32")] = bwd
+    TRAIN_FWD_LAUNCHES[(cfg.hd, "float32")] = fwd
     errs = [_rel_fro(torch, a.cpu(), b) for a, b in zip(g_dev, g_cpu)]
     worst = max(errs)
     l_err = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
@@ -3893,7 +3995,7 @@ def train_breakdown(torch, step_fn, params, opt, batch,
     flashattn.flash_attention = marked(saved[2], "flash_fwd_call:serve")
     flashattn.flash_attention_lse = marked(saved[3], "flash_fwd_call:lse")
     kinds = {"flash_bwd": ("flash_bwd_",),
-             "flash_fwd": ("flash_attention_kernel", "flash_wgmma_kernel"),
+             "flash_fwd": ("flash_f32_kernel", "flash_wgmma_kernel"),
              "gemm": ("gemm", "Gemm", "nvjet", "sm90_xmma", "cutlass"),
              "memcpy": ("Memcpy", "Memset")}
     bwd0 = flashattn.BWD_LAUNCHES
@@ -4237,11 +4339,12 @@ def main() -> None:
         r["serve_launches"] = serve_launches(
             r["name"], serve_counts[0],
             {**serve_counts[1], "flash_attention_d80": 0,
-             "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0})
+             "flash_attention_bwd": 0, "flash_attention_bwd_f32": 0,
+             "flash_attention_f32": 0})
         r["dist_launches"] = serve_launches(r["name"], dist_widths, {
             "spmm_blocksparse_bf16": 0, "flash_attention": 0,
             "flash_attention_d80": 0, "flash_attention_bwd": 0,
-            "flash_attention_bwd_f32": 0})
+            "flash_attention_bwd_f32": 0, "flash_attention_f32": 0})
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

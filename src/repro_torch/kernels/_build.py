@@ -43,7 +43,7 @@ SIGNATURES = {
                                   _I, _I, _I, _F, _I, _P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _F, _I, _P],
-    "repro_flash_attention_bwd_f32": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    "repro_flash_attention_bwd_f32": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     "repro_flash_attention_bwd_bf16": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
 }
 

@@ -59,37 +59,49 @@
 //     holds it. The denominator sums the float32 weights.
 //
 // Both routes optionally store each row's log-sum-exp of the scaled scores,
-// LSE = m + log(l) in natural units, (B, H, Sq) float32, for the backward
-// (csrc/flashattn_bwd.cu): the bf16 route's running max is in log2 units
-// with the scale folded in, so it stores m ln 2 + log(l). O does not depend
-// on whether LSE is stored.
+// LSE in natural units, (B, H, Sq) float32, for the backward
+// (csrc/flashattn_bwd.cu): their running max is in log2 units with the
+// scale folded in, so they store m ln 2 + log(l). O does not depend on
+// whether LSE is stored.
 //
-// float32 route (flash_attention_kernel): the products on the CUDA cores,
-// instantiated at d = 16, 32, 64, 80 and 128 (any multiple of 16 fits:
-// a thread owns d/16 output columns tx + 16 c, and the float4 reads go
-// along the query rows, not along d).
-// 64 query rows by 64 keys per step, 256 threads as a 16 x 16 grid: a
-// thread owns 4 query rows and 4 score columns (tx + 16 j), and the same 4
-// rows by d/16 output columns (tx + 16 c). Q (once), then K (transposed),
-// then V (same buffer) and the weights P (transposed) are staged in shared
-// memory; masked scores are -1e30 and P stays float32 into the PV product.
+// float32 route (flash_f32_kernel), on the CUDA cores (the port's numerics
+// rule allows no TF32). What bounds it: operations, 4 d flop a kept
+// (query, key) pair; at the layer of chip_smoke.py's phase 32b (B 1, H 12,
+// Hkv 2, S 1024, d 128, causal) 3.22e9 flop, 0.048 ms at the 67 TFLOP/s
+// float32 peak. What its
+// design does about that (the tile helpers are in cudacore.cuh, shared
+// with the backward's float32 route):
+//   * 64 query rows a CTA against 128 keys a step, 256 threads, one CTA an
+//     SM at d = 128 (194 KB of shared memory); the CTAs of the heaviest
+//     query tiles of every head launch first;
+//   * Q (once), K and V are staged row-major by 16-byte cp.async copies,
+//     V of this step while S is computed and K of the next step while the
+//     PV product runs: two barriers a step;
+//   * S = Q K^T in registers, 4 query rows (8 apart) by 8 keys (16 apart)
+//     a thread, read as float4s along d; a row's 128 keys are spread over
+//     16 lanes of one warp, which take its max and sum in fixed xor trees
+//     (bit-identical in every lane); exp2 with the scale folded into
+//     log2(e), masked scores -inf;
+//   * P stays float32 into the PV product: stored transposed, a row per
+//     key, with each thread's 4 query rows in one float4, so that
+//     O += P V reads one float4 of P and d/64 float4s of V per key for
+//     4 x d/16 accumulators a thread.
+//   Head dims 16 and 32 run on 64 columns and 80 on 128 (columns past d
+//   are staged as zeros and never stored). ptxas (-Xptxas -v,
+//   sm_90a): flash_f32_kernel<128> uses 250 registers and
+//   flash_f32_kernel<64> 168, no spills (one CTA of 256 threads an SM may
+//   use 255).
 //
 // The TMA, mbarrier and wgmma helpers and the tensor-map encoder are in
 // hopper.cuh, shared with the backward (flashattn_bwd.cu).
-#include "hopper.cuh"
+#include "cudacore.cuh"
 
 namespace {
 
 // ------------------------------------------------------------ float32 route
 
-constexpr int kBQ = 64;          // query rows per CTA
-constexpr int kBK = 64;          // keys per step
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kRows = 4;         // query rows per thread: 4 ty .. 4 ty + 3
-constexpr int kCols = kBK / 16;  // score columns per thread: tx + 16 j
-constexpr int kQPad = kBQ + 4;   // row length of Q^T and P^T (float4 reads)
-constexpr int kKPad = kBK + 1;   // row length of K^T (conflict-free stores)
-constexpr float kNegInf = -1e30f;
+constexpr int kFQ = 64;    // query rows a CTA
+constexpr int kFK = 128;   // keys a step
 
 struct Params {
   const float* q;
@@ -98,177 +110,163 @@ struct Params {
   float* o;
   float* lse;  // (B, H, Sq) log-sum-exp, or nullptr
   Strides sq, sk, sv, so;
-  int batch, heads, kv_heads, len_q, len_k, causal;
-  float scale;
+  int heads, kv_heads, len_q, len_k, head_dim, causal;
+  float scale_log2;  // scale * log2(e)
 };
 
-// Sum over the 16 lanes of a row group in a fixed tree; every lane of the
-// group gets lane 0's result, so all agree to the bit.
-__device__ __forceinline__ float row_sum(float v) {
-  v += __shfl_down_sync(0xffffffffu, v, 8, 16);
-  v += __shfl_down_sync(0xffffffffu, v, 4, 16);
-  v += __shfl_down_sync(0xffffffffu, v, 2, 16);
-  v += __shfl_down_sync(0xffffffffu, v, 1, 16);
-  return __shfl_sync(0xffffffffu, v, 0, 16);
+// Shared memory of flash_f32_kernel, in floats: Q [64][NP], K and V
+// [128][NP] (swizzled), and P^T [128 keys][kLdP].
+template <int NP>
+constexpr int f32_smem_floats() {
+  return kFQ * NP + 2 * kFK * NP + kFK * kLdP;
 }
 
-__device__ __forceinline__ float row_max(float v) {
+// Max and sum over the 16 lanes of a half warp in fixed xor trees; every
+// lane ends with the same bits.
+__device__ __forceinline__ float half_max(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
-
-template <int D>
-constexpr int smem_floats() {
-  return D * kQPad + D * kKPad + kBK * kQPad;
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
 
-// Stage rows [r0, r0 + 64) of a (len, D) matrix, zeros past len:
-// transposed to dst[c * ld + r] or row-major dst[r * D + c].
-template <int D, bool kTranspose>
-__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
-                                      long long stride, int r0, int len) {
-  for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int g = r0 + r;
-    const float x = g < len ? src[g * stride + c] : 0.f;
-    if (kTranspose)
-      dst[c * ld + r] = x;
-    else
-      dst[r * D + c] = x;
-  }
-}
+template <int NP>
+__global__ void __launch_bounds__(kFThreads, 1)
+flash_f32_kernel(const __grid_constant__ Params p) {
+  constexpr int kNB = NP / 64;  // output column chunks a thread
+  extern __shared__ float4 f_smem[];
+  float* q_s = reinterpret_cast<float*>(f_smem);
+  float* k_s = q_s + kFQ * NP;
+  float* v_s = k_s + kFK * NP;
+  float* pt_s = v_s + kFK * NP;  // P^T, a row per key
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const Params p) {
-  static_assert(D % 16 == 0 && D >= 16, "head dim");
-  constexpr int kOut = D / 16;  // output columns per thread
-  extern __shared__ float4 smem_raw[];
-  float* qt = reinterpret_cast<float*>(smem_raw);  // [D][kQPad]  Q^T
-  float* kv = qt + D * kQPad;  // [D][kKPad] K^T, then [kBK][D] V
-  float* pt = kv + D * kKPad;  // [kBK][kQPad] P^T
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kFQ;  // heaviest first
   const int hk = h / (p.heads / p.kv_heads);
-  const float* qg = p.q + b * p.sq.b + h * p.sq.h;
   const float* kg = p.k + b * p.sk.b + hk * p.sk.h;
   const float* vg = p.v + b * p.sv.b + hk * p.sv.h;
-  float* og = p.o + b * p.so.b + h * p.so.h;
+  int n_tiles = (p.len_k + kFK - 1) / kFK;
+  if (p.causal)  // no key past the tile's last query row is needed
+    n_tiles = min(n_tiles, (min(q0 + kFQ, p.len_q) - 1) / kFK + 1);
 
-  stage<D, true>(qt, kQPad, qg, p.sq.s, q0, p.len_q);
-
-  float acc[kRows][kOut];
-  float m[kRows], l[kRows];
+  // A thread: query rows a0 + 8 i (i < 4), keys kg0 + 16 j (j < 8) of S;
+  // the same query rows by column chunks kg0 + 16 n of O. The 16 lanes of
+  // a half warp share the query rows; P^T holds them as float4 `slot`.
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kg0 = lane & 15;
+  const int a0 = (w & 3) + 4 * (lane >> 4) + 32 * (w >> 2);
+  const int slot[1] = {(a0 & 7) + 8 * (a0 >> 5)};
+  int cc[kNB];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) acc[i][c] = 0.f;
-  }
+  for (int n = 0; n < kNB; ++n) cc[n] = kg0 + 16 * n;
 
-  int n_tiles = (p.len_k + kBK - 1) / kBK;
-  if (p.causal) {  // no key past the tile's last query row is needed
-    const int last_q = min(q0 + kBQ, p.len_q) - 1;
-    n_tiles = min(n_tiles, last_q / kBK + 1);
+  stage_tile<kFQ, NP>(q_s, p.q + b * p.sq.b + h * p.sq.h, p.sq.s, q0,
+                      p.len_q, p.head_dim);
+  stage_tile<kFK, NP>(k_s, kg, p.sk.s, 0, p.len_k, p.head_dim);
+  cp_async_commit();
+
+  float o[4][4 * kNB], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;  // this lane's share; the half warp is summed at the end
+#pragma unroll
+    for (int c = 0; c < 4 * kNB; ++c) o[i][c] = 0.f;
   }
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous step's V and P are consumed
-    stage<D, true>(kv, kKPad, kg, p.sk.s, k0, p.len_k);
-    __syncthreads();
+    const int k0 = t * kFK;
+    cp_async_wait_all();
+    __syncthreads();  // K of this step is in; the last PV product is done
+    stage_tile<kFK, NP>(v_s, vg, p.sv.s, k0, p.len_k, p.head_dim);
+    cp_async_commit();
 
-    float s[kRows][kCols];
+    float s[4][8];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv =
-          *reinterpret_cast<const float4*>(qt + d * kQPad + ty * kRows);
-      const float qr[kRows] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float kk = kv[d * kKPad + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) s[i][j] = fmaf(qr[i], kk, s[i][j]);
-      }
-    }
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    dot_rows<NP, 4, 8, 8, 16>(s, q_s, a0, k_s, kg0);
 
+    // Online softmax in log2 units; masked scores are -inf.
+    const bool edge = k0 + kFK > p.len_k ||
+                      (p.causal && k0 + kFK - 1 > q0);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + ty * kRows + i;
-      float mx = kNegInf;
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + a0 + 8 * i;
+      float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float x = s[i][j] * p.scale;
-        if (kj >= p.len_k || (p.causal && kj > qi)) x = kNegInf;
+      for (int j = 0; j < 8; ++j) {
+        const int kj = k0 + kg0 + 16 * j;
+        float x = s[i][j] * p.scale_log2;
+        if (edge && (kj >= p.len_k || (p.causal && kj > qi))) x = -INFINITY;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
+      const float mn = fmaxf(m[i], half_max(mx));
+      const float base = mn == -INFINITY ? 0.f : mn;
+      const float alpha = exp2f(m[i] - base);
+      m[i] = mn;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        rs += e;
-        pt[(tx + 16 * j) * kQPad + ty * kRows + i] = e;
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = exp2f(s[i][j] - base);
+        rs += s[i][j];
       }
-      l[i] = l[i] * alpha + row_sum(rs);
-      m[i] = m_new;
+      l[i] = l[i] * alpha + rs;
 #pragma unroll
-      for (int c = 0; c < kOut; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < 4 * kNB; ++c) o[i][c] *= alpha;
     }
-    __syncthreads();  // K consumed, P stored
-    stage<D, false>(kv, D, vg, p.sv.s, k0, p.len_k);
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float4*>(pt_s + (kg0 + 16 * j) * kLdP +
+                                 4 * slot[0]) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
 
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      const float4 pv =
-          *reinterpret_cast<const float4*>(pt + j * kQPad + ty * kRows);
-      const float pr[kRows] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int c = 0; c < kOut; ++c) {
-        const float vv = kv[j * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          acc[i][c] = fmaf(pr[i], vv, acc[i][c]);
-      }
+    cp_async_wait_all();
+    __syncthreads();  // V and P^T are in; every thread is done with K
+    if (t + 1 < n_tiles) {
+      stage_tile<kFK, NP>(k_s, kg, p.sk.s, k0 + kFK, p.len_k, p.head_dim);
+      cp_async_commit();
     }
+    acc_rows<kFK, NP, 1, kNB>(o, pt_s, slot, v_s, cc);   // O += P V
   }
 
+  float* og = p.o + b * p.so.b + h * p.so.h;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qi = q0 + ty * kRows + i;
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + a0 + 8 * i;
+    const float den = fmaxf(half_sum(l[i]), 1e-30f);
     if (qi >= p.len_q) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kOut; ++c)
-      og[qi * p.so.s + tx + 16 * c] = acc[i][c] / denom;
-    if (p.lse != nullptr && tx == 0)
+    for (int n = 0; n < kNB; ++n) {
+      const int col = 4 * cc[n];
+      if (col >= p.head_dim) continue;
+      *reinterpret_cast<float4*>(og + qi * p.so.s + col) =
+          make_float4(o[i][4 * n] / den, o[i][4 * n + 1] / den,
+                      o[i][4 * n + 2] / den, o[i][4 * n + 3] / den);
+    }
+    if (p.lse != nullptr && kg0 == 0)
       p.lse[(static_cast<long long>(b) * p.heads + h) * p.len_q + qi] =
-          m[i] + logf(denom);
+          m[i] * kLn2 + logf(den);
   }
 }
 
-template <int D>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+template <int NP>
+cudaError_t launch_f32(const Params& p, int batch, cudaStream_t stream) {
+  constexpr int bytes = f32_smem_floats<NP>() * 4;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.len_q + kBQ - 1) / kBQ, p.heads, p.batch);
-  flash_attention_kernel<D><<<grid, kThreads, bytes, stream>>>(p);
+  const dim3 grid(p.heads, batch, (p.len_q + kFQ - 1) / kFQ);
+  flash_f32_kernel<NP><<<grid, kFThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -537,9 +535,11 @@ void unpack_strides(const long long* strides, Strides* out[4]) {
 // q (B, H, Sq, d), k/v (B, Hkv, Sk, d), o (B, H, Sq, d) of one type, each
 // addressed by its (batch, head, sequence) strides in elements, in this
 // order in `strides` (a host array of 12): q, k, v, o. The last dim is
-// contiguous. lse is a contiguous (B, H, Sq) float32 array, or null to
-// store none. The caller guarantees B, H, Hkv, Sq, Sk >= 1, H % Hkv == 0,
-// d in {16, 32, 64, 80, 128}.
+// contiguous; q, k and v are 16-byte aligned and each of their strides of
+// a dim longer than 1 is a multiple of 16 bytes (the kernels read 16-byte
+// pieces; checked by the wrapper). lse is a contiguous (B, H, Sq) float32
+// array, or null to store none. The caller guarantees B, H, Hkv, Sq,
+// Sk >= 1, H % Hkv == 0, d in {16, 32, 64, 80, 128}.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          const long long* strides, int batch,
@@ -549,6 +549,8 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (head_dim % 16 != 0 || head_dim < 16 || head_dim > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -557,27 +559,19 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k,
   p.lse = static_cast<float*>(lse);
   Strides* all[4] = {&p.sq, &p.sk, &p.sv, &p.so};
   unpack_strides(strides, all);
-  p.batch = batch;
   p.heads = heads;
   p.kv_heads = kv_heads;
   p.len_q = len_q;
   p.len_k = len_k;
+  p.head_dim = head_dim;
   p.causal = causal;
-  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return static_cast<int>(launch_f32<16>(p, s));
-    case 32: return static_cast<int>(launch_f32<32>(p, s));
-    case 64: return static_cast<int>(launch_f32<64>(p, s));
-    case 80: return static_cast<int>(launch_f32<80>(p, s));
-    case 128: return static_cast<int>(launch_f32<128>(p, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(head_dim <= 64 ? launch_f32<64>(p, batch, s)
+                                         : launch_f32<128>(p, batch, s));
 }
 
-// The same contract in bf16; besides, q, k and v are 16-byte aligned and
-// each of their strides of a dim longer than 1 is a multiple of 8
-// elements (TMA's rule, checked by the wrapper).
+// The same contract in bf16 (the 16-byte rule is TMA's).
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           const void* v, void* o, void* lse,
                                           const long long* strides, int batch,

@@ -18,22 +18,36 @@
 // causal. qwen2-1.5b's training layer (B 2, H 12, Hkv 2, S 4096, d 128,
 // causal, bf16) needs 2.58e11 flop, 0.261 ms at the 989 TFLOP/s bf16
 // tensor-core peak; its Q, K, V, O, dO, LSE in and dQ, dK, dV out are
-// 118 MB, 0.035 ms at 3.35 TB/s.
+// 118 MB, 0.035 ms at 3.35 TB/s. qwen2's layer in float32 at 1,024
+// tokens (chip_smoke.py's phase 32b: B 1, H 12, Hkv 2, S 1024, d 128,
+// causal) needs 8.06e9 flop, 0.120 ms at the 67 TFLOP/s float32 peak of
+// the CUDA cores.
 //
 // No atomics in either route: dQ is summed over the keys by the CTA of its
 // query tile, dK and dV over the queries by the CTAs of their key tile,
 // each in a fixed order, so the gradients are bit-identical run to run.
 // That costs the recomputation of S and dP for dQ: 7 products where an
 // atomic dQ (FlashAttention-2) needs 5 (3.61e11 flop at qwen2's layer,
-// 0.365 ms at the peak).
+// 0.365 ms at the peak; 1.13e10 flop, 0.168 ms at phase 32b's layer).
+//
+// Both routes start with flash_bwd_prep_kernel: D = rowsum(dO o O) (one
+// warp per row, each lane over columns lane, lane + 32, ... then a fixed
+// xor tree) and LSE log2(e), into (B, H, Sq_pad) scratch padded to whole
+// 64-row tiles; a padded row has LSE = +inf and D = 0, so its P and dS
+// come out 0 with no mask. With G = H / Hkv > 1 the key-tile CTAs store
+// float32 partials (B, H, Sk, d) of dK and dV per query head, and
+// flash_bwd_reduce_kernel sums a KV head's G partials in order
+// g = 0 .. G-1, scales dK and stores both in the input type; with G = 1
+// the key-tile CTAs store the gradients themselves. A CTA per query head,
+// not per KV head: per KV head qwen2's layer would be 128 CTAs of 64 keys
+// on 132 SMs, the first walking 6 x 64 query tiles and the last 6; per
+// query head it is 1,536 CTAs, and its partials (100.7 MB there) cost
+// ~0.06 ms to write and read. A key tile that no query sees (causal,
+// Sq < Sk) stores zeros.
 //
 // bf16 route, on the tensor cores (wgmma, TMA loads; the helpers are in
 // hopper.cuh, shared with the forward), four launches on the caller's
-// stream (three when H = Hkv):
-//   * flash_bwd_prep_kernel: D = rowsum(dO o O) (one warp per row, as in
-//     the float32 route) and LSE log2(e), into (B, H, Sq_pad) scratch
-//     padded to whole 64-row tiles; a padded row has LSE = +inf and D = 0,
-//     so its P and dS come out 0 with no mask;
+// stream (three when H = Hkv): prep, dK/dV, the reduction, dQ.
 //   * flash_bwd_dkdv_wgmma_kernel: a CTA per (64-key tile, query head,
 //     batch) of one warpgroup, two CTAs per SM. Thread 0 loads the K and V
 //     tiles once by TMA and streams the 64-query tiles of Q and dO, with
@@ -46,10 +60,7 @@
 //     dS^T = P^T o (dP^T - D) on the accumulator fragments in registers,
 //     which are the layout of wgmma's register A operand; dV += P^T dO and
 //     dK += dS^T Q by wgmma with dO and Q as MN-major B operands (as the
-//     forward's V). With G = H / Hkv > 1 the CTA stores float32 partials
-//     (B, H, Sk, d) of dK and dV; with G = 1, the bf16 gradients;
-//   * flash_bwd_reduce_kernel (G > 1): dK and dV of a KV head as the sum
-//     of its G partials in order g = 0 .. G-1, dK scaled, cast to bf16;
+//     forward's V);
 //   * flash_bwd_dq_wgmma_kernel: a CTA per (64-query tile, head, batch),
 //     one warpgroup, Q and dO loaded once, 64-key tiles of K and V through
 //     a 2-stage ring up to the diagonal, heaviest tiles first: S = Q K^T
@@ -61,96 +72,74 @@
 //   and so do columns past d (d = 16 and 32 run on 64 columns, 80 on 128,
 //   as in the forward): they add nothing to S or dP. Keys past Sk and the
 //   pairs causal masks get P = 0, and nothing past Sq, Sk or d is stored.
-//   A key tile that no query sees (causal, Sq < Sk) stores zeros.
-//   A CTA per query head, not per KV head: per KV head qwen2's layer would
-//   be 128 CTAs of 64 keys on 132 SMs, the first walking 6 x 64 query
-//   tiles and the last 6; per query head it is 1,536 CTAs, and its
-//   partials (100.7 MB there) cost ~0.06 ms to write and read.
 //
 // float32 route, on the CUDA cores (the port's numerics rule allows no
-// TF32, so the tensor cores are not used), three launches:
-//   * flash_bwd_delta_kernel: D = rowsum(dO o O), one warp per row, each
-//     lane over columns lane, lane + 32, ... then a fixed xor tree;
-//   * flash_bwd_dkdv_kernel: a CTA per (64-key tile, KV head, batch)
-//     holds K^T and V^T in shared memory and dK, dV in registers, and walks
-//     the KV head's G query heads in order g = 0 .. G-1 and, for each, the
-//     64-row query tiles from the diagonal on under `causal` (the earlier
-//     ones see none of these keys); per tile it recomputes S and dP, forms
-//     P and dS in shared memory and adds P^T dO and dS^T Q;
-//   * flash_bwd_dq_kernel: a CTA per (64-row query tile, head, batch)
-//     holds Q^T and dO^T and walks the key tiles up to the diagonal,
-//     recomputing S and dP and adding dS K into dQ in registers.
-// Layout of a CTA (256 threads as 16 x 16, tx = tid % 16, ty = tid / 16):
-// a thread owns 4 consecutive rows 4 ty .. 4 ty + 3 of a 64 x 64 score
-// tile and the columns tx + 16 j (j < 4); of a 64 x d accumulator the same
-// rows and the columns tx + 16 c (c < d / 16). Matrices read 4 rows at a
-// time are stored with rows of 68 floats (float4 loads), those read one
-// column per thread with rows of 65 (conflict-free both along and across
-// rows). Masked and out-of-range entries of P and dS are 0; rows and keys
-// past Sq and Sk are staged as zeros and never stored.
-#include "hopper.cuh"
+// TF32, so the tensor cores are not used; the tile helpers are in
+// cudacore.cuh, shared with the forward), three launches on the caller's
+// stream (two when H = Hkv): prep, flash_bwd_f32_kernel, the reduction.
+// What bounds it in practice is the CUDA cores' issue rate: 7 products of
+// float32 FMAs, each FMA needing its operands from shared memory, and a
+// causal grid whose CTAs carry from 1 to Sq/64 tiles.
+//   * One grid of 256-thread CTAs, one CTA an SM (its tiles take all 227
+//     KB of shared memory at d = 128), for both halves of the work: a CTA
+//     per (64-key tile, query head, batch) for dK and dV and a CTA per
+//     (64-query tile, head, batch) for dQ, interleaved in launch order,
+//     each kind heaviest first under causal. At phase 32b's layer: 384
+//     CTAs on 132 SMs; one CTA per KV head for dK and dV would be 32, and
+//     would leave three quarters of the card idle.
+//   * The dK/dV CTA holds K and V and streams Q, dO, LSE log2(e) and D
+//     from the diagonal on by 16-byte cp.async copies into two stages:
+//     the next query tile's copies are in flight while this one computes.
+//     Its two warpgroups split the products: warpgroup 0 computes
+//     S^T = K Q^T, P^T = exp2(S^T scale log2(e) - LSE log2(e)), stores P
+//     and adds dV += P^T dO; warpgroup 1 computes dP^T = V dO^T, reads
+//     P back, stores dS = P o (dP - D) and adds dK += dS^T Q. Two block
+//     barriers a tile and one over warpgroup 1.
+//   * The dQ CTA holds Q and dO and streams K and V up to the diagonal
+//     the same way: warpgroup 0 computes S and stores P (a row per key),
+//     warpgroup 1 computes dP and turns P into dS in place, and both add
+//     dQ += dS K, each over half of the head dim. Three barriers a tile.
+//   * Register tiles: of S^T, dP^T, S and dP a thread owns 8 x 4 (rows 8
+//     apart, so that its shared-memory rows share a swizzle), read as
+//     float4s along the head dim from row-major tiles; of dK and dV 8 keys
+//     x 8 columns at d = 128 (64 accumulators each warpgroup), of dQ 8
+//     queries x 4. No tile is stored transposed.
+//   * Rows past Sq and Sk and columns past d are staged as zeros (d = 16
+//     and 32 run on 64 columns, 80 on 128); keys past Sk and the pairs
+//     causal masks get P = 0; nothing past Sq, Sk or d is stored.
+//   ptxas (-Xptxas -v, sm_90a): flash_bwd_f32_kernel<128> uses
+//   238 registers, flash_bwd_f32_kernel<64> 167, no spills (one CTA of
+//   256 threads an SM may use 255).
+#include "cudacore.cuh"
 
 namespace {
 
-// ------------------------------------------------------------ float32 route
-
-template <typename T>
-struct BwdParams {
-  const T* q;
-  const T* k;
-  const T* v;
-  const T* o;
-  const T* dout;
-  T* dq;
-  T* dk;
-  T* dv;
-  const float* lse;  // (B, H, Sq)
-  float* delta;      // (B, H, Sq), written by the first launch
-  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
-  int batch, heads, kv_heads, len_q, len_k, head_dim, causal;
-  float scale;
-};
-
-constexpr int kBT = 64;          // query rows and keys per tile
-constexpr int kThreads = 256;    // 16 x 16
-constexpr int kLdT = kBT + 4;    // rows read as float4
-constexpr int kLdS = kBT + 1;    // rows read one column per thread
+// ------------------------------------------------------------- both routes
 
 __device__ __forceinline__ float ld_f(const float* p) { return *p; }
 __device__ __forceinline__ float ld_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void st_f(float* p, float x) { *p = x; }
-
-// Stage rows [r0, r0 + 64) of a (len, D) matrix transposed, dst[c * ld + r],
-// zeros past len.
-template <typename T, int D>
-__device__ __forceinline__ void stage_t(float* dst, int ld, const T* src,
-                                        long long stride, int r0, int len) {
-  for (int i = threadIdx.x; i < kBT * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int g = r0 + r;
-    dst[c * ld + r] = g < len ? ld_f(src + g * stride + c) : 0.f;
-  }
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// LSE and D of rows [q0, q0 + 64), zeros past len_q.
-__device__ __forceinline__ void stage_rows(float* lse_s, float* dl_s,
-                                           const float* lse,
-                                           const float* delta, int q0,
-                                           int len_q) {
-  if (threadIdx.x < kBT) {
-    const int qi = q0 + threadIdx.x;
-    const bool in = qi < len_q;
-    lse_s[threadIdx.x] = in ? lse[qi] : 0.f;
-    dl_s[threadIdx.x] = in ? delta[qi] : 0.f;
-  }
-}
+constexpr int kTile = 64;    // query rows and keys per tile, both routes
+constexpr int kRowThreads = 256;  // threads of the prep and reduce kernels
 
-__device__ __forceinline__ bool kept(int qi, int kj, int len_q, int len_k,
-                                     int causal) {
-  return qi < len_q && kj < len_k && !(causal && kj > qi);
-}
+template <typename T>
+struct PrepParams {
+  const T* o;
+  const T* dout;
+  const float* lse;  // (B, H, Sq) log-sum-exp, natural units
+  float* lse2;       // (B, H, Sq_pad): LSE log2(e), +inf past Sq
+  float* delta;      // (B, H, Sq_pad): D, 0 past Sq
+  Strides so, sdo;
+  int batch, heads, len_q, len_q_pad, head_dim;
+};
 
 // D of one row, rowsum(dO o O): lane c sums columns c, c + 32, ... in
 // order, then a fixed xor tree; every lane ends with the same bits.
@@ -167,367 +156,8 @@ __device__ __forceinline__ float row_delta(const T* og, const T* dg,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_delta_kernel(const BwdParams<T> p) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * 8 + warp;
-  const long long rows =
-      static_cast<long long>(p.batch) * p.heads * p.len_q;
-  if (row >= rows) return;
-  const int qi = static_cast<int>(row % p.len_q);
-  const long long bh = row / p.len_q;
-  const int h = static_cast<int>(bh % p.heads);
-  const int b = static_cast<int>(bh / p.heads);
-  const float acc =
-      row_delta(p.o + b * p.so.b + h * p.so.h + qi * p.so.s,
-                p.dout + b * p.sdo.b + h * p.sdo.h + qi * p.sdo.s,
-                p.head_dim, lane);
-  if (lane == 0) p.delta[row] = acc;
-}
-
-template <int D>
-constexpr int dkdv_smem_floats() {
-  return 2 * D * kLdT + 2 * D * kLdS + 2 * kBT * kLdT + 2 * kBT;
-}
-
-template <int D>
-constexpr int dq_smem_floats() {
-  return 2 * D * kLdT + 2 * D * kLdS + kBT * kLdT + 2 * kBT;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const BwdParams<T> p) {
-  static_assert(D % 16 == 0 && D >= 16, "head dim");
-  constexpr int kC = D / 16;
-  extern __shared__ float4 dkdv_smem[];
-  float* kt = reinterpret_cast<float*>(dkdv_smem);  // [D][kLdT] K^T
-  float* vt = kt + D * kLdT;                         // [D][kLdT] V^T
-  float* qt = vt + D * kLdT;                         // [D][kLdS] Q^T
-  float* dot = qt + D * kLdS;                        // [D][kLdS] dO^T
-  float* pm = dot + D * kLdS;     // [kBT][kLdT] P, a row per query
-  float* dsm = pm + kBT * kLdT;   // [kBT][kLdT] dS, a row per query
-  float* lse_s = dsm + kBT * kLdT;
-  float* dl_s = lse_s + kBT;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * kBT;  // under causal the first tiles weigh most
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int group = p.heads / p.kv_heads;
-  stage_t<T, D>(kt, kLdT, p.k + b * p.sk.b + hk * p.sk.h, p.sk.s, k0,
-                p.len_k);
-  stage_t<T, D>(vt, kLdT, p.v + b * p.sv.b + hk * p.sv.h, p.sv.s, k0,
-                p.len_k);
-
-  float dk[4][kC], dv[4][kC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kC; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  const int n_q = (p.len_q + kBT - 1) / kBT;
-  const int first = p.causal ? k0 / kBT : 0;  // no earlier row sees a key
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const T* qg = p.q + b * p.sq.b + h * p.sq.h;
-    const T* dg = p.dout + b * p.sdo.b + h * p.sdo.h;
-    const long long row0 = (static_cast<long long>(b) * p.heads + h) * p.len_q;
-    for (int t = first; t < n_q; ++t) {
-      const int q0 = t * kBT;
-      __syncthreads();  // K, V staged; the last tile's Q, dO, P, dS consumed
-      stage_t<T, D>(qt, kLdS, qg, p.sq.s, q0, p.len_q);
-      stage_t<T, D>(dot, kLdS, dg, p.sdo.s, q0, p.len_q);
-      stage_rows(lse_s, dl_s, p.lse + row0, p.delta + row0, q0, p.len_q);
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < D; ++c) {
-        const float4 k4 = *reinterpret_cast<const float4*>(kt + c * kLdT +
-                                                           4 * ty);
-        const float4 v4 = *reinterpret_cast<const float4*>(vt + c * kLdT +
-                                                           4 * ty);
-        const float kr[4] = {k4.x, k4.y, k4.z, k4.w};
-        const float vr[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float qv = qt[c * kLdS + tx + 16 * j];
-          const float gv = dot[c * kLdS + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            s[i][j] = fmaf(kr[i], qv, s[i][j]);
-            dp[i][j] = fmaf(vr[i], gv, dp[i][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ql = tx + 16 * j, qi = q0 + ql;
-        float pr[4], dr[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kj = k0 + 4 * ty + i;
-          const float pv = kept(qi, kj, p.len_q, p.len_k, p.causal)
-                               ? expf(s[i][j] * p.scale - lse_s[ql])
-                               : 0.f;
-          pr[i] = pv;
-          dr[i] = pv * (dp[i][j] - dl_s[ql]);
-        }
-        *reinterpret_cast<float4*>(pm + ql * kLdT + 4 * ty) =
-            make_float4(pr[0], pr[1], pr[2], pr[3]);
-        *reinterpret_cast<float4*>(dsm + ql * kLdT + 4 * ty) =
-            make_float4(dr[0], dr[1], dr[2], dr[3]);
-      }
-      __syncthreads();
-
-      // dV += P^T dO, dK += dS^T Q, over the tile's queries in order
-#pragma unroll 4
-      for (int ql = 0; ql < kBT; ++ql) {
-        const float4 p4 =
-            *reinterpret_cast<const float4*>(pm + ql * kLdT + 4 * ty);
-        const float4 d4 =
-            *reinterpret_cast<const float4*>(dsm + ql * kLdT + 4 * ty);
-        const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
-        const float dr[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          const float gv = dot[(tx + 16 * c) * kLdS + ql];
-          const float qv = qt[(tx + 16 * c) * kLdS + ql];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv[i][c] = fmaf(pr[i], gv, dv[i][c]);
-            dk[i][c] = fmaf(dr[i], qv, dk[i][c]);
-          }
-        }
-      }
-    }
-  }
-
-  T* dkg = p.dk + b * p.sdk.b + hk * p.sdk.h;
-  T* dvg = p.dv + b * p.sdv.b + hk * p.sdv.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + 4 * ty + i;
-    if (kj >= p.len_k) continue;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      st_f(dkg + kj * p.sdk.s + tx + 16 * c, dk[i][c] * p.scale);
-      st_f(dvg + kj * p.sdv.s + tx + 16 * c, dv[i][c]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const BwdParams<T> p) {
-  static_assert(D % 16 == 0 && D >= 16, "head dim");
-  constexpr int kC = D / 16;
-  extern __shared__ float4 dq_smem[];
-  float* qt = reinterpret_cast<float*>(dq_smem);  // [D][kLdT] Q^T
-  float* dot = qt + D * kLdT;                      // [D][kLdT] dO^T
-  float* kt = dot + D * kLdT;                      // [D][kLdS] K^T
-  float* vt = kt + D * kLdS;                       // [D][kLdS] V^T
-  float* dst = vt + D * kLdS;   // [kBT][kLdT] dS^T, a row per key
-  float* lse_s = dst + kBT * kLdT;
-  float* dl_s = lse_s + kBT;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBT;  // heaviest first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.heads / p.kv_heads);
-  const long long row0 = (static_cast<long long>(b) * p.heads + h) * p.len_q;
-  stage_t<T, D>(qt, kLdT, p.q + b * p.sq.b + h * p.sq.h, p.sq.s, q0,
-                p.len_q);
-  stage_t<T, D>(dot, kLdT, p.dout + b * p.sdo.b + h * p.sdo.h, p.sdo.s, q0,
-                p.len_q);
-  stage_rows(lse_s, dl_s, p.lse + row0, p.delta + row0, q0, p.len_q);
-  const T* kg = p.k + b * p.sk.b + hk * p.sk.h;
-  const T* vg = p.v + b * p.sv.b + hk * p.sv.h;
-
-  float dq[4][kC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kC; ++c) dq[i][c] = 0.f;
-
-  int n_k = (p.len_k + kBT - 1) / kBT;
-  if (p.causal)  // no key past the tile's last query row is needed
-    n_k = min(n_k, (min(q0 + kBT, p.len_q) - 1) / kBT + 1);
-  for (int t = 0; t < n_k; ++t) {
-    const int k0 = t * kBT;
-    __syncthreads();  // Q, dO staged; the last tile's K, V, dS consumed
-    stage_t<T, D>(kt, kLdS, kg, p.sk.s, k0, p.len_k);
-    stage_t<T, D>(vt, kLdS, vg, p.sv.s, k0, p.len_k);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: rows are queries, columns keys
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float4 q4 =
-          *reinterpret_cast<const float4*>(qt + c * kLdT + 4 * ty);
-      const float4 g4 =
-          *reinterpret_cast<const float4*>(dot + c * kLdT + 4 * ty);
-      const float qr[4] = {q4.x, q4.y, q4.z, q4.w};
-      const float gr[4] = {g4.x, g4.y, g4.z, g4.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kv = kt[c * kLdS + tx + 16 * j];
-        const float vv = vt[c * kLdS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][j] = fmaf(qr[i], kv, s[i][j]);
-          dp[i][j] = fmaf(gr[i], vv, dp[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kl = tx + 16 * j, kj = k0 + kl;
-      float dr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ql = 4 * ty + i;
-        dr[i] = kept(q0 + ql, kj, p.len_q, p.len_k, p.causal)
-                    ? expf(s[i][j] * p.scale - lse_s[ql]) *
-                          (dp[i][j] - dl_s[ql])
-                    : 0.f;
-      }
-      *reinterpret_cast<float4*>(dst + kl * kLdT + 4 * ty) =
-          make_float4(dr[0], dr[1], dr[2], dr[3]);
-    }
-    __syncthreads();
-
-    // dQ += dS K, over the tile's keys in order
-#pragma unroll 4
-    for (int kl = 0; kl < kBT; ++kl) {
-      const float4 d4 =
-          *reinterpret_cast<const float4*>(dst + kl * kLdT + 4 * ty);
-      const float dr[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        const float kv = kt[(tx + 16 * c) * kLdS + kl];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dq[i][c] = fmaf(dr[i], kv, dq[i][c]);
-      }
-    }
-  }
-
-  T* dqg = p.dq + b * p.sdq.b + h * p.sdq.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
-    if (qi >= p.len_q) continue;
-#pragma unroll
-    for (int c = 0; c < kC; ++c)
-      st_f(dqg + qi * p.sdq.s + tx + 16 * c, dq[i][c] * p.scale);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch_bwd(const BwdParams<T>& p, cudaStream_t stream) {
-  const long long rows = static_cast<long long>(p.batch) * p.heads * p.len_q;
-  flash_bwd_delta_kernel<T>
-      <<<static_cast<unsigned>((rows + 7) / 8), kThreads, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr int kv_bytes = dkdv_smem_floats<D>() * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kv_bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_kv((p.len_k + kBT - 1) / kBT, p.kv_heads, p.batch);
-  flash_bwd_dkdv_kernel<T, D><<<grid_kv, kThreads, kv_bytes, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr int q_bytes = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             q_bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((p.len_q + kBT - 1) / kBT, p.heads, p.batch);
-  flash_bwd_dq_kernel<T, D><<<grid_q, kThreads, q_bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int run_bwd(const void* q, const void* k, const void* v, const void* o,
-            const void* dout, const void* lse, void* delta, void* dq,
-            void* dk, void* dv, const long long* strides, int batch,
-            int heads, int kv_heads, int len_q, int len_k, int head_dim,
-            int causal, float scale, int device, void* stream) {
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  BwdParams<T> p;
-  p.q = static_cast<const T*>(q);
-  p.k = static_cast<const T*>(k);
-  p.v = static_cast<const T*>(v);
-  p.o = static_cast<const T*>(o);
-  p.dout = static_cast<const T*>(dout);
-  p.dq = static_cast<T*>(dq);
-  p.dk = static_cast<T*>(dk);
-  p.dv = static_cast<T*>(dv);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<float*>(delta);
-  Strides* all[8] = {&p.sq, &p.sk, &p.sv, &p.so,
-                     &p.sdo, &p.sdq, &p.sdk, &p.sdv};
-  for (int i = 0; i < 8; ++i)
-    *all[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  p.batch = batch;
-  p.heads = heads;
-  p.kv_heads = kv_heads;
-  p.len_q = len_q;
-  p.len_k = len_k;
-  p.head_dim = head_dim;
-  p.causal = causal;
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return static_cast<int>(launch_bwd<T, 16>(p, s));
-    case 32: return static_cast<int>(launch_bwd<T, 32>(p, s));
-    case 64: return static_cast<int>(launch_bwd<T, 64>(p, s));
-    case 80: return static_cast<int>(launch_bwd<T, 80>(p, s));
-    case 128: return static_cast<int>(launch_bwd<T, 128>(p, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// --------------------------------------------------------------- bf16 route
-
-constexpr int kB = 64;                     // queries and keys per tile
-constexpr int kWg = 128;                   // one warpgroup a CTA
-constexpr int kBoxBytes = kB * kRowBytes;  // one 64-column box of a tile
-constexpr int kRowsBytes = 2 * kB * 4;     // LSE log2(e) and D of a tile
-
-struct BParams {
-  TmaView q, k, v, dout;  // boxes of 64 columns by kB rows
-  const __nv_bfloat16* o;
-  const __nv_bfloat16* dout_ptr;
-  const float* lse;  // (B, H, Sq) log-sum-exp, natural units
-  float* lse2;       // (B, H, Sq_pad): LSE log2(e), +inf past Sq
-  float* delta;      // (B, H, Sq_pad): D, 0 past Sq
-  float* partial;    // (2, B, H, Sk, d) dK and dV per query head, or null
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
-  Strides so, sdo, sdq, sdk, sdv;
-  int batch, heads, kv_heads, len_q, len_k, len_q_pad, head_dim, causal;
-  float scale, scale_log2;  // scale, and scale * log2(e)
-};
-
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_prep_kernel(const __grid_constant__ BParams p) {
+__global__ void __launch_bounds__(kRowThreads)
+flash_bwd_prep_kernel(const __grid_constant__ PrepParams<T> p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * 8 + warp;
   if (row >= static_cast<long long>(p.batch) * p.heads * p.len_q_pad) return;
@@ -538,7 +168,7 @@ flash_bwd_prep_kernel(const __grid_constant__ BParams p) {
     const int h = static_cast<int>(bh % p.heads);
     const int b = static_cast<int>(bh / p.heads);
     dsum = row_delta(p.o + b * p.so.b + h * p.so.h + qi * p.so.s,
-                     p.dout_ptr + b * p.sdo.b + h * p.sdo.h + qi * p.sdo.s,
+                     p.dout + b * p.sdo.b + h * p.sdo.h + qi * p.sdo.s,
                      p.head_dim, lane);
     lse2 = p.lse[bh * p.len_q + qi] * kLog2e;
   }
@@ -547,6 +177,427 @@ flash_bwd_prep_kernel(const __grid_constant__ BParams p) {
     p.lse2[row] = lse2;
   }
 }
+
+template <typename T>
+struct ReduceParams {
+  const float* partial;  // (2, B, H, Sk, d): unscaled dK, then dV
+  T* dk;
+  T* dv;
+  Strides sdk, sdv;
+  int batch, heads, kv_heads, len_k, head_dim;
+  float scale;
+};
+
+// dK and dV of (B, Hkv, Sk, d) from the partials: a thread per pair of
+// columns sums the G query heads of its KV head in order.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+flash_bwd_reduce_kernel(const __grid_constant__ ReduceParams<T> p) {
+  const int half = p.head_dim / 2;
+  const long long i = static_cast<long long>(blockIdx.x) * kRowThreads +
+                      threadIdx.x;
+  if (i >= static_cast<long long>(p.batch) * p.kv_heads * p.len_k * half)
+    return;
+  const int c = static_cast<int>(i % half) * 2;
+  long long r = i / half;
+  const int kj = static_cast<int>(r % p.len_k);
+  r /= p.len_k;
+  const int hk = static_cast<int>(r % p.kv_heads);
+  const int b = static_cast<int>(r / p.kv_heads);
+  const int group = p.heads / p.kv_heads;
+  const long long head = static_cast<long long>(p.len_k) * p.head_dim;
+  const long long plane = static_cast<long long>(p.batch) * p.heads * head;
+  const float* at = p.partial +
+                    (static_cast<long long>(b) * p.heads + hk * group) * head +
+                    static_cast<long long>(kj) * p.head_dim + c;
+  float2 sk = *reinterpret_cast<const float2*>(at);
+  float2 sv = *reinterpret_cast<const float2*>(at + plane);
+  for (int g = 1; g < group; ++g) {
+    const float2 gk = *reinterpret_cast<const float2*>(at + g * head);
+    const float2 gv = *reinterpret_cast<const float2*>(at + plane + g * head);
+    sk.x += gk.x;
+    sk.y += gk.y;
+    sv.x += gv.x;
+    sv.y += gv.y;
+  }
+  st2(p.dk + b * p.sdk.b + hk * p.sdk.h + kj * p.sdk.s + c, sk.x * p.scale,
+      sk.y * p.scale);
+  st2(p.dv + b * p.sdv.b + hk * p.sdv.h + kj * p.sdv.s + c, sv.x, sv.y);
+}
+
+template <typename T>
+cudaError_t launch_prep(const PrepParams<T>& p, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(p.batch) * p.heads *
+                         p.len_q_pad;
+  flash_bwd_prep_kernel<T>
+      <<<static_cast<unsigned>((rows + 7) / 8), kRowThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_reduce(const ReduceParams<T>& p, cudaStream_t stream) {
+  const long long n = static_cast<long long>(p.batch) * p.kv_heads *
+                      p.len_k * (p.head_dim / 2);
+  flash_bwd_reduce_kernel<T><<<static_cast<unsigned>((n + kRowThreads - 1) /
+                                                     kRowThreads),
+                               kRowThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ float32 route
+
+struct FParams {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* lse2;   // (B, H, Sq_pad) from the prep kernel
+  const float* delta;  // (B, H, Sq_pad)
+  float* partial;      // (2, B, H, Sk, d) dK and dV per query head, or null
+  float* dq;
+  float* dk;
+  float* dv;
+  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
+  int batch, heads, kv_heads, len_q, len_k, len_q_pad, head_dim, causal;
+  float scale, scale_log2;  // scale, and scale * log2(e)
+};
+
+// Shared memory of flash_bwd_f32_kernel, in floats: six [64][NP] tiles
+// (the dK/dV CTA's K, V and two stages of Q and dO; the dQ CTA's Q, dO
+// and two stages of K and V), LSE log2(e) and D of two query tiles, and
+// two [64][kLdP] tiles (P and dS). At NP = 128: 232,448 bytes, the most
+// a block may have.
+template <int NP>
+constexpr int fbwd_smem_floats() {
+  return 6 * kTile * NP + 4 * kTile + 2 * kTile * kLdP;
+}
+
+// Rows of the 8 x 4 product tiles (S^T, dP^T, S, dP) of thread t of a
+// warpgroup: rows a0 + 8 i of the A operand (keys of S^T, queries of S),
+// b0 + 8 j of the B operand; a warp holds 32 x 32 of the 64 x 64 tile.
+__device__ __forceinline__ int tile_a0(int t) {
+  return ((t & 31) >> 3) + 4 * ((t >> 5) & 1);
+}
+__device__ __forceinline__ int tile_b0(int t) {
+  return (t & 7) + 32 * (t >> 6);
+}
+
+// dK (warpgroup 1) and dV (warpgroup 0) of key tile kt for query head h.
+template <int NP>
+__device__ __forceinline__ void dkdv_tile(const FParams& p, float* sm, int h,
+                                          int b, int kt) {
+  constexpr int kT = kTile * NP;  // floats of a staged tile
+  constexpr int kNB = NP / 64;    // column chunks of dK, dV a thread
+  float* k_s = sm;
+  float* v_s = sm + kT;
+  float* qd_s = sm + 2 * kT;      // stage s: Q at 2 s kT, dO at (2 s + 1) kT
+  float* rows_s = sm + 6 * kT;    // stage s: LSE log2(e), then D
+  float* p_s = rows_s + 4 * kTile;  // P, a row per query
+  float* ds_s = p_s + kTile * kLdP;  // dS, a row per query
+  const int k0 = kt * kTile;
+  const int hk = h / (p.heads / p.kv_heads);
+  const int first = p.causal ? k0 / kTile : 0;  // no earlier query sees a key
+  const int n_tiles = max((p.len_q + kTile - 1) / kTile - first, 0);
+  const long long row0 = (static_cast<long long>(b) * p.heads + h) *
+                         p.len_q_pad;
+  const float* qg = p.q + b * p.sq.b + h * p.sq.h;
+  const float* dg = p.dout + b * p.sdo.b + h * p.sdo.h;
+
+  // Q, dO, LSE log2(e) and D of query tile first + t into stage t % 2
+  auto load_q_tile = [&](int t) {
+    const int s = t & 1, q0 = (first + t) * kTile;
+    stage_tile<kTile, NP>(qd_s + 2 * s * kT, qg, p.sq.s, q0, p.len_q,
+                          p.head_dim);
+    stage_tile<kTile, NP>(qd_s + (2 * s + 1) * kT, dg, p.sdo.s, q0, p.len_q,
+                          p.head_dim);
+    if (threadIdx.x < kTile / 2) {  // 2 x 64 floats, 16 bytes a thread
+      const int which = threadIdx.x / (kTile / 4);
+      const int c4 = threadIdx.x % (kTile / 4);
+      cp_async16(smem_u32(rows_s + (2 * s + which) * kTile + 4 * c4),
+                 (which ? p.delta : p.lse2) + row0 + q0 + 4 * c4, true);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) {  // K and V go with the first query tile's group
+    stage_tile<kTile, NP>(k_s, p.k + b * p.sk.b + hk * p.sk.h, p.sk.s, k0,
+                          p.len_k, p.head_dim);
+    stage_tile<kTile, NP>(v_s, p.v + b * p.sv.b + hk * p.sv.h, p.sv.s, k0,
+                          p.len_k, p.head_dim);
+    load_q_tile(0);
+  }
+
+  const int grp = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int a0 = tile_a0(t), b0 = tile_b0(t);  // keys a0 + 8 i, queries
+  // dV (warpgroup 0) or dK (1): keys 4 kc[m] + x, columns 4 cc[n] + y
+  const int kc[2] = {t >> 4, (t >> 4) + 8};
+  int cc[kNB];
+#pragma unroll
+  for (int n = 0; n < kNB; ++n) cc[n] = (t & 15) + 16 * n;
+  float acc[8][4 * kNB];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * kNB; ++c) acc[i][c] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it & 1, q0 = (first + it) * kTile;
+    cp_async_wait_all();
+    __syncthreads();  // stage s is in; tile it - 1 is done with s ^ 1, P, dS
+    if (it + 1 < n_tiles) load_q_tile(it + 1);
+    const float* q_t = qd_s + 2 * s * kT;
+    const float* do_t = q_t + kT;
+    const float* l2 = rows_s + 2 * s * kTile;
+    const float* dl = l2 + kTile;
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1)
+    float st[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = 0.f;
+    dot_rows<NP, 8, 8, 4, 8>(st, grp ? v_s : k_s, a0, grp ? do_t : q_t, b0);
+    if (grp == 0) {  // P, stored a row per query; masked pairs get 0
+      const bool edge = k0 + kTile > p.len_k ||
+                        (p.causal && k0 + kTile - 1 > q0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ql = b0 + 8 * j;
+        const float lj = l2[ql];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int kj = k0 + a0 + 8 * i;
+          float x = exp2f(fmaf(st[i][j], p.scale_log2, -lj));
+          if (edge && (kj >= p.len_k || (p.causal && kj > q0 + ql))) x = 0.f;
+          p_s[ql * kLdP + a0 + 8 * i] = x;
+        }
+      }
+    }
+    __syncthreads();  // P is in
+    if (grp == 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ql = b0 + 8 * j;
+        const float dj = dl[ql];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int at = ql * kLdP + a0 + 8 * i;
+          ds_s[at] = p_s[at] * (st[i][j] - dj);
+        }
+      }
+      bar_named(1, 128);  // dS is in
+    }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1)
+    acc_rows<kTile, NP, 2, kNB>(acc, grp ? ds_s : p_s, kc, grp ? q_t : do_t,
+                                cc);
+  }
+
+  float* out;
+  long long rs;
+  if (p.partial == nullptr) {  // G = 1: the gradients themselves
+    out = grp ? p.dk + b * p.sdk.b + hk * p.sdk.h
+              : p.dv + b * p.sdv.b + hk * p.sdv.h;
+    rs = grp ? p.sdk.s : p.sdv.s;
+  } else {  // this query head's partials, summed by the reduction
+    const long long head = static_cast<long long>(p.len_k) * p.head_dim;
+    out = p.partial + (grp ? 0 : static_cast<long long>(p.batch) * p.heads *
+                                     head) +
+          (static_cast<long long>(b) * p.heads + h) * head;
+    rs = p.head_dim;
+  }
+  // dK is scaled once: here when G = 1, else in the reduction
+  const float m_out = grp && p.partial == nullptr ? p.scale : 1.f;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int kj = k0 + 4 * kc[m] + x;
+      if (kj >= p.len_k) continue;
+#pragma unroll
+      for (int n = 0; n < kNB; ++n) {
+        const int col = 4 * cc[n];
+        if (col >= p.head_dim) continue;
+        const float* a = acc[4 * m + x] + 4 * n;
+        *reinterpret_cast<float4*>(out + kj * rs + col) = make_float4(
+            a[0] * m_out, a[1] * m_out, a[2] * m_out, a[3] * m_out);
+      }
+    }
+}
+
+// dQ of query tile qt for head h.
+template <int NP>
+__device__ __forceinline__ void dq_tile(const FParams& p, float* sm, int h,
+                                        int b, int qt) {
+  constexpr int kT = kTile * NP;
+  constexpr int kCg = NP / 8;   // column chunks of dQ a warpgroup
+  constexpr int kNA = NP / 64;  // query chunks of dQ a thread
+  float* q_s = sm;
+  float* do_s = sm + kT;
+  float* kv_s = sm + 2 * kT;   // stage s: K at 2 s kT, V at (2 s + 1) kT
+  float* ds_s = sm + 6 * kT + 4 * kTile;  // P, then dS in place: a row a key
+  const int q0 = qt * kTile;
+  const int hk = h / (p.heads / p.kv_heads);
+  int n_k = (p.len_k + kTile - 1) / kTile;
+  if (p.causal)  // no key past the tile's last query row is needed
+    n_k = min(n_k, (min(q0 + kTile, p.len_q) - 1) / kTile + 1);
+  const float* kg = p.k + b * p.sk.b + hk * p.sk.h;
+  const float* vg = p.v + b * p.sv.b + hk * p.sv.h;
+
+  // K and V of key tile t into stage t % 2
+  auto load_k_tile = [&](int t) {
+    const int s = t & 1;
+    stage_tile<kTile, NP>(kv_s + 2 * s * kT, kg, p.sk.s, t * kTile, p.len_k,
+                          p.head_dim);
+    stage_tile<kTile, NP>(kv_s + (2 * s + 1) * kT, vg, p.sv.s, t * kTile,
+                          p.len_k, p.head_dim);
+    cp_async_commit();
+  };
+  stage_tile<kTile, NP>(q_s, p.q + b * p.sq.b + h * p.sq.h, p.sq.s, q0,
+                        p.len_q, p.head_dim);
+  stage_tile<kTile, NP>(do_s, p.dout + b * p.sdo.b + h * p.sdo.h, p.sdo.s,
+                        q0, p.len_q, p.head_dim);
+  load_k_tile(0);  // Q and dO go with the first key tile's group
+
+  const int grp = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int a0 = tile_a0(t), b0 = tile_b0(t);  // queries a0 + 8 i, keys
+  // LSE log2(e) (warpgroup 0) or D (1) of the thread's query rows
+  const float* rsrc = (grp ? p.delta : p.lse2) +
+                      (static_cast<long long>(b) * p.heads + h) *
+                          p.len_q_pad + q0;
+  float rowv[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) rowv[i] = rsrc[a0 + 8 * i];
+  // dQ: queries 4 qc[m] + x, columns 4 cq[0] + y (half the head dim a
+  // warpgroup)
+  int qc[kNA];
+#pragma unroll
+  for (int m = 0; m < kNA; ++m) qc[m] = t / kCg + (128 / kCg) * m;
+  const int cq[1] = {grp * kCg + t % kCg};
+  float acc[4 * kNA][4];
+#pragma unroll
+  for (int i = 0; i < 4 * kNA; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+
+  for (int it = 0; it < n_k; ++it) {
+    const int s = it & 1, k0 = it * kTile;
+    cp_async_wait_all();
+    __syncthreads();  // stage s is in; tile it - 1 is done with s ^ 1, dS
+    if (it + 1 < n_k) load_k_tile(it + 1);
+    const float* k_t = kv_s + 2 * s * kT;
+    const float* v_t = k_t + kT;
+
+    // S = Q K^T (warpgroup 0) or dP = dO V^T (1)
+    float st[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = 0.f;
+    dot_rows<NP, 8, 8, 4, 8>(st, grp ? do_s : q_s, a0, grp ? v_t : k_t, b0);
+    if (grp == 0) {  // P, stored a row per key; masked pairs get 0
+      const bool edge = k0 + kTile > p.len_k ||
+                        (p.causal && k0 + kTile - 1 > q0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kl = b0 + 8 * j;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int ql = a0 + 8 * i;
+          float x = exp2f(fmaf(st[i][j], p.scale_log2, -rowv[i]));
+          if (edge && (k0 + kl >= p.len_k ||
+                       (p.causal && k0 + kl > q0 + ql)))
+            x = 0.f;
+          ds_s[kl * kLdP + ql] = x;
+        }
+      }
+    }
+    __syncthreads();  // P is in
+    if (grp == 1) {   // dS = P o (dP - D), in place
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int at = (b0 + 8 * j) * kLdP + a0 + 8 * i;
+          ds_s[at] = ds_s[at] * (st[i][j] - rowv[i]);
+        }
+    }
+    __syncthreads();  // dS is in
+    acc_rows<kTile, NP, kNA, 1>(acc, ds_s, qc, k_t, cq);   // dQ += dS K
+  }
+
+  float* dqg = p.dq + b * p.sdq.b + h * p.sdq.h;
+  const int col = 4 * cq[0];
+  if (col >= p.head_dim) return;
+#pragma unroll
+  for (int m = 0; m < kNA; ++m)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int qi = q0 + 4 * qc[m] + x;
+      if (qi >= p.len_q) continue;
+      const float* a = acc[4 * m + x];
+      *reinterpret_cast<float4*>(dqg + qi * p.sdq.s + col) =
+          make_float4(a[0] * p.scale, a[1] * p.scale, a[2] * p.scale,
+                      a[3] * p.scale);
+    }
+}
+
+// Both kinds of CTA in one grid, interleaved in launch order (dK/dV of key
+// tile 0, dQ of the last query tile, dK/dV of key tile 1, ...): under
+// causal each kind runs heaviest first, and the two together fill the card.
+template <int NP>
+__global__ void __launch_bounds__(kFThreads, 1)
+flash_bwd_f32_kernel(const __grid_constant__ FParams p) {
+  extern __shared__ float4 fb_smem[];
+  float* sm = reinterpret_cast<float*>(fb_smem);
+  const int h = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int n_kt = (p.len_k + kTile - 1) / kTile;
+  const int n_qt = (p.len_q + kTile - 1) / kTile;
+  const int both = 2 * min(n_kt, n_qt);
+  const bool kv = z < both ? (z & 1) == 0 : n_kt > n_qt;
+  const int r = z < both ? z >> 1 : z - both / 2;
+  if (kv)
+    dkdv_tile<NP>(p, sm, h, b, r);
+  else
+    dq_tile<NP>(p, sm, h, b, n_qt - 1 - r);
+}
+
+template <int NP>
+cudaError_t launch_bwd_f32(const FParams& p, const PrepParams<float>& pp,
+                           const ReduceParams<float>& rp,
+                           cudaStream_t stream) {
+  cudaError_t err = launch_prep(pp, stream);
+  if (err != cudaSuccess) return err;
+  constexpr int bytes = fbwd_smem_floats<NP>() * 4;
+  err = cudaFuncSetAttribute(flash_bwd_f32_kernel<NP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.heads, p.batch, (p.len_k + kTile - 1) / kTile +
+                                        (p.len_q + kTile - 1) / kTile);
+  flash_bwd_f32_kernel<NP><<<grid, kFThreads, bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.partial == nullptr) return err;
+  return launch_reduce(rp, stream);
+}
+
+// --------------------------------------------------------------- bf16 route
+
+constexpr int kB = kTile;                  // queries and keys per tile
+constexpr int kWg = 128;                   // one warpgroup a CTA
+constexpr int kBoxBytes = kB * kRowBytes;  // one 64-column box of a tile
+constexpr int kRowsBytes = 2 * kB * 4;     // LSE log2(e) and D of a tile
+
+struct BParams {
+  TmaView q, k, v, dout;  // boxes of 64 columns by kB rows
+  float* lse2;       // (B, H, Sq_pad): LSE log2(e), +inf past Sq
+  float* delta;      // (B, H, Sq_pad): D, 0 past Sq
+  float* partial;    // (2, B, H, Sk, d) dK and dV per query head, or null
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  Strides sdq, sdk, sdv;
+  int batch, heads, kv_heads, len_q, len_k, len_q_pad, head_dim, causal;
+  float scale, scale_log2;  // scale, and scale * log2(e)
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
@@ -769,45 +820,6 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ BParams p) {
   }
 }
 
-// dK and dV of (B, Hkv, Sk, d) from the partials: a thread per pair of
-// columns sums the G query heads of its KV head in order.
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_reduce_kernel(const __grid_constant__ BParams p) {
-  const int half = p.head_dim / 2;
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(p.batch) * p.kv_heads * p.len_k * half)
-    return;
-  const int c = static_cast<int>(i % half) * 2;
-  long long r = i / half;
-  const int kj = static_cast<int>(r % p.len_k);
-  r /= p.len_k;
-  const int hk = static_cast<int>(r % p.kv_heads);
-  const int b = static_cast<int>(r / p.kv_heads);
-  const int group = p.heads / p.kv_heads;
-  const long long head = static_cast<long long>(p.len_k) * p.head_dim;
-  const long long plane = static_cast<long long>(p.batch) * p.heads * head;
-  const float* at = p.partial +
-                    (static_cast<long long>(b) * p.heads + hk * group) * head +
-                    static_cast<long long>(kj) * p.head_dim + c;
-  float2 sk = *reinterpret_cast<const float2*>(at);
-  float2 sv = *reinterpret_cast<const float2*>(at + plane);
-  for (int g = 1; g < group; ++g) {
-    const float2 gk = *reinterpret_cast<const float2*>(at + g * head);
-    const float2 gv = *reinterpret_cast<const float2*>(at + plane + g * head);
-    sk.x += gk.x;
-    sk.y += gk.y;
-    sv.x += gv.x;
-    sv.y += gv.y;
-  }
-  *reinterpret_cast<__nv_bfloat162*>(p.dk + b * p.sdk.b + hk * p.sdk.h +
-                                     kj * p.sdk.s + c) =
-      __floats2bfloat162_rn(sk.x * p.scale, sk.y * p.scale);
-  *reinterpret_cast<__nv_bfloat162*>(p.dv + b * p.sdv.b + hk * p.sdv.h +
-                                     kj * p.sdv.s + c) =
-      __floats2bfloat162_rn(sv.x, sv.y);
-}
-
 template <int NP>
 __global__ void __launch_bounds__(kWg, 2)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ BParams p) {
@@ -960,12 +972,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ BParams p) {
 }
 
 template <int NP>
-cudaError_t launch_bwd_bf16(const BParams& p, cudaStream_t stream) {
-  const long long rows = static_cast<long long>(p.batch) * p.heads *
-                         p.len_q_pad;
-  flash_bwd_prep_kernel<<<static_cast<unsigned>((rows + 7) / 8), kThreads,
-                          0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+cudaError_t launch_bwd_bf16(const BParams& p,
+                            const PrepParams<__nv_bfloat16>& pp,
+                            const ReduceParams<__nv_bfloat16>& rp,
+                            cudaStream_t stream) {
+  cudaError_t err = launch_prep(pp, stream);
   if (err != cudaSuccess) return err;
   constexpr int bytes = bwd_smem_bytes<NP>();
   err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<NP>,
@@ -981,12 +992,7 @@ cudaError_t launch_bwd_bf16(const BParams& p, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (p.partial != nullptr) {
-    const long long n = static_cast<long long>(p.batch) * p.kv_heads *
-                        p.len_k * (p.head_dim / 2);
-    flash_bwd_reduce_kernel<<<static_cast<unsigned>((n + kThreads - 1) /
-                                                    kThreads),
-                              kThreads, 0, stream>>>(p);
-    err = cudaGetLastError();
+    err = launch_reduce(rp, stream);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid_q(p.heads, p.batch, (p.len_q + kB - 1) / kB);
@@ -994,33 +1000,105 @@ cudaError_t launch_bwd_bf16(const BParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// What both routes' entry points share: the strides, the scratch and the
+// parameters of the prep and reduce kernels.
+template <typename T>
+struct Call {
+  Strides s[8];  // q, k, v, o, dout, dq, dk, dv
+  PrepParams<T> prep;
+  ReduceParams<T> reduce;
+  int len_q_pad;
+};
+
+template <typename T>
+Call<T> unpack(const void* o, const void* dout, const void* lse, void* rows,
+               void* partial, void* dk, void* dv, const long long* strides,
+               int batch, int heads, int kv_heads, int len_q, int len_k,
+               int head_dim, float scale) {
+  Call<T> c;
+  for (int i = 0; i < 8; ++i)
+    c.s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  c.len_q_pad = (len_q + kTile - 1) / kTile * kTile;
+  float* lse2 = static_cast<float*>(rows);
+  float* delta = lse2 + static_cast<long long>(batch) * heads * c.len_q_pad;
+  c.prep = PrepParams<T>{static_cast<const T*>(o), static_cast<const T*>(dout),
+                         static_cast<const float*>(lse), lse2, delta, c.s[3],
+                         c.s[4], batch, heads, len_q, c.len_q_pad, head_dim};
+  c.reduce = ReduceParams<T>{static_cast<const float*>(partial),
+                             static_cast<T*>(dk), static_cast<T*>(dv), c.s[6],
+                             c.s[7], batch, heads, kv_heads, len_k, head_dim,
+                             scale};
+  return c;
+}
+
+bool bad_args(int heads, int kv_heads, int head_dim, const void* partial) {
+  return head_dim % 16 != 0 || head_dim < 16 || head_dim > 128 ||
+         (heads != kv_heads && partial == nullptr);
+}
+
 }  // namespace
 
 // q, o, dout, dq (B, H, Sq, d) and k, v, dk, dv (B, Hkv, Sk, d) of one type,
 // each addressed by its (batch, head, sequence) strides in elements, in
 // this order in `strides` (a host array of 24): q, k, v, o, dout, dq, dk,
-// dv. The last dim is contiguous. lse (the forward's) and delta (scratch
-// the first launch fills) are contiguous (B, H, Sq) float32. The caller
-// guarantees B, H, Hkv, Sq, Sk >= 1, H % Hkv == 0, d in {16, 32, 64, 80,
-// 128}. Three launches on `stream`: D, then dK and dV, then dQ.
+// dv. The last dim is contiguous; q, k, v and dout are 16-byte aligned and
+// each of their strides of a dim longer than 1 is a multiple of 16 bytes
+// (checked by the wrapper). lse (the forward's) is a contiguous (B, H, Sq)
+// float32 array. Scratch: `rows` is 2 B H Sq_pad float32 (Sq_pad = Sq
+// rounded up to 64), `partial` 2 B H Sk d float32 when H > Hkv (null when
+// H = Hkv). The caller guarantees B, H, Hkv, Sq, Sk >= 1, H % Hkv == 0, d
+// in {16, 32, 64, 80, 128}. Three launches on `stream` (two when H = Hkv):
+// LSE and D, dK, dV and dQ, the reduction of dK and dV.
 extern "C" int repro_flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, const long long* strides, int batch, int heads, int kv_heads,
-    int len_q, int len_k, int head_dim, int causal, float scale, int device,
-    void* stream) {
-  return run_bwd<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, strides,
-                        batch, heads, kv_heads, len_q, len_k, head_dim,
-                        causal, scale, device, stream);
+    const void* dout, const void* lse, void* rows, void* partial, void* dq,
+    void* dk, void* dv, const long long* strides, int batch, int heads,
+    int kv_heads, int len_q, int len_k, int head_dim, int causal,
+    float scale, int device, void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (bad_args(heads, kv_heads, head_dim, partial))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Call<float> c = unpack<float>(o, dout, lse, rows, partial, dk, dv,
+                                      strides, batch, heads, kv_heads, len_q,
+                                      len_k, head_dim, scale);
+  FParams p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.dout = static_cast<const float*>(dout);
+  p.lse2 = c.prep.lse2;
+  p.delta = c.prep.delta;
+  p.partial = heads == kv_heads ? nullptr : static_cast<float*>(partial);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.sq = c.s[0];
+  p.sk = c.s[1];
+  p.sv = c.s[2];
+  p.sdo = c.s[4];
+  p.sdq = c.s[5];
+  p.sdk = c.s[6];
+  p.sdv = c.s[7];
+  p.batch = batch;
+  p.heads = heads;
+  p.kv_heads = kv_heads;
+  p.len_q = len_q;
+  p.len_k = len_k;
+  p.len_q_pad = c.len_q_pad;
+  p.head_dim = head_dim;
+  p.causal = causal;
+  p.scale = scale;
+  p.scale_log2 = scale * kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      head_dim <= 64 ? launch_bwd_f32<64>(p, c.prep, c.reduce, s)
+                     : launch_bwd_f32<128>(p, c.prep, c.reduce, s));
 }
 
-// The same contract in bf16, with other scratch: `rows` is 2 B H Sq_pad
-// float32 (Sq_pad = Sq rounded up to 64), `partial` 2 B H Sk d float32
-// when H > Hkv (null when H = Hkv). Besides, q, k, v and dout are 16-byte
-// aligned and each of their strides of a dim longer than 1 is a multiple
-// of 8 elements (TMA's rule, checked by the wrapper). Returns the forward's
-// error codes on a failed tensor-map encode. Four launches on `stream`
-// (three when H = Hkv): LSE and D, dK and dV, their reduction, dQ.
+// The same contract in bf16; the 16-byte rule is TMA's, and a failed
+// tensor-map encode returns the forward's error codes. Four launches on
+// `stream` (three when H = Hkv): LSE and D, dK and dV, their reduction, dQ.
 extern "C" int repro_flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* rows, void* partial, void* dq,
@@ -1029,33 +1107,31 @@ extern "C" int repro_flash_attention_bwd_bf16(
     float scale, int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  if (head_dim % 16 != 0 || head_dim < 16 || head_dim > 128 ||
-      (heads != kv_heads && partial == nullptr))
+  if (bad_args(heads, kv_heads, head_dim, partial))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Call<__nv_bfloat16> c = unpack<__nv_bfloat16>(
+      o, dout, lse, rows, partial, dk, dv, strides, batch, heads, kv_heads,
+      len_q, len_k, head_dim, scale);
   BParams p;
-  Strides sq, sk, sv;
-  Strides* all[8] = {&sq, &sk, &sv, &p.so, &p.sdo, &p.sdq, &p.sdk, &p.sdv};
-  for (int i = 0; i < 8; ++i)
-    *all[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  int err = encode_view(&p.q, q, batch, heads, len_q, head_dim, sq, kB);
+  int err = encode_view(&p.q, q, batch, heads, len_q, head_dim, c.s[0], kB);
   if (err == 0)
-    err = encode_view(&p.k, k, batch, kv_heads, len_k, head_dim, sk, kB);
+    err = encode_view(&p.k, k, batch, kv_heads, len_k, head_dim, c.s[1], kB);
   if (err == 0)
-    err = encode_view(&p.v, v, batch, kv_heads, len_k, head_dim, sv, kB);
+    err = encode_view(&p.v, v, batch, kv_heads, len_k, head_dim, c.s[2], kB);
   if (err == 0)
-    err = encode_view(&p.dout, dout, batch, heads, len_q, head_dim, p.sdo,
+    err = encode_view(&p.dout, dout, batch, heads, len_q, head_dim, c.s[4],
                       kB);
   if (err != 0) return err;
-  p.o = static_cast<const __nv_bfloat16*>(o);
-  p.dout_ptr = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.len_q_pad = (len_q + kB - 1) / kB * kB;
-  p.lse2 = static_cast<float*>(rows);
-  p.delta = p.lse2 + static_cast<long long>(batch) * heads * p.len_q_pad;
+  p.len_q_pad = c.len_q_pad;
+  p.lse2 = c.prep.lse2;
+  p.delta = c.prep.delta;
   p.partial = heads == kv_heads ? nullptr : static_cast<float*>(partial);
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.sdq = c.s[5];
+  p.sdk = c.s[6];
+  p.sdv = c.s[7];
   p.batch = batch;
   p.heads = heads;
   p.kv_heads = kv_heads;
@@ -1066,6 +1142,7 @@ extern "C" int repro_flash_attention_bwd_bf16(
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(head_dim <= 64 ? launch_bwd_bf16<64>(p, s)
-                                         : launch_bwd_bf16<128>(p, s));
+  return static_cast<int>(
+      head_dim <= 64 ? launch_bwd_bf16<64>(p, c.prep, c.reduce, s)
+                     : launch_bwd_bf16<128>(p, c.prep, c.reduce, s));
 }

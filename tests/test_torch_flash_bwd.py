@@ -245,3 +245,96 @@ def test_broadcast_cotangent_is_laid_out_for_the_tensor_maps():
     assert flashattn._unbroadcast(view) is view
     one = torch.zeros((1, 1, 8, 16), dtype=torch.bfloat16).expand(3, 1, 8, 16)
     assert flashattn._unbroadcast(one).is_contiguous()
+
+
+# (B, H, Hkv, Sq, Sk, d): G = 6 at 32b's layer, G = 1, ragged Sq and Sk,
+# one query row, hubert's d = 80
+SCRATCH_CASES = [
+    (1, 12, 2, 1024, 1024, 128),
+    (2, 6, 6, 150, 150, 64),
+    (2, 6, 2, 70, 130, 80),
+    (1, 4, 1, 1, 129, 16),
+]
+
+
+@pytest.mark.parametrize("case", SCRATCH_CASES)
+def test_backward_scratch_is_float32_and_sized_for_either_route(case):
+    """The backward's scratch, the same for bf16 and float32: LSE log2(e)
+    and D of every query row padded to whole 64-row tiles, and per-query-
+    head dK and dV partials (summed over a KV head's query heads by the
+    last launch) only when H > Hkv."""
+    b, h, hkv, sq, sk, d = case
+    rows, partial = flashattn.bwd_scratch(b, h, hkv, sq, sk, d, "cpu")
+    sq_pad = -(-sq // flashattn.BWD_TILE) * flashattn.BWD_TILE
+    assert flashattn.BWD_TILE == 64 and sq_pad % 64 == 0 and sq_pad >= sq
+    assert rows.dtype == torch.float32 and rows.shape == (2, b, h, sq_pad)
+    assert rows.is_contiguous()
+    if h == hkv:
+        assert partial is None
+    else:
+        assert partial.dtype == torch.float32 and partial.is_contiguous()
+        assert partial.shape == (2, b, h, sk, d)
+
+
+def _bwd_args(dtype=torch.float32, d=16, lse_shape=None):
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _inputs(1, 4, 2, 8, 8, d, seed=4))
+    lse = torch.zeros(lse_shape or (1, 4, 8), dtype=torch.float32)
+    return q, k, v, q.clone(), lse, do
+
+
+def _refusal(kind):
+    """(arguments of flash_attention_bwd, the error, its message)."""
+    q, k, v, o, lse, do = _bwd_args()
+    if kind == "float16":
+        return _bwd_args(torch.float16), TypeError, "float32 or bfloat16"
+    if kind == "mixed dtypes":
+        return (q, k.bfloat16(), v.bfloat16(), o, lse, do), TypeError, \
+            "share one dtype"
+    if kind == "head dim 120":
+        return _bwd_args(d=120), ValueError, "head dim 120"
+    if kind == "H % Hkv":
+        return (q, k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1),
+                o, lse, do), ValueError, "H % Hkv"
+    if kind == "do shape":
+        return (q, k, v, o, lse, do[:, :, :4]), ValueError, "q's shape"
+    if kind == "lse shape":
+        return (q, k, v, o, lse[:, :, :4], do), ValueError, "lse must be"
+    if kind == "lse dtype":
+        return (q, k, v, o, lse.double(), do), ValueError, "lse must be"
+    if kind == "lse strided":
+        return (q, k, v, o, torch.zeros((1, 8, 4)).transpose(1, 2), do), \
+            ValueError, "lse must be"
+    return (q, k, v, o, lse, do), ValueError, "CUDA tensors only"
+
+
+@pytest.mark.parametrize("kind", [
+    "float16", "mixed dtypes", "head dim 120", "H % Hkv", "do shape",
+    "lse shape", "lse dtype", "lse strided", "well-formed on the CPU"])
+def test_backward_wrapper_refuses_what_its_kernels_do_not_take(kind):
+    """The wrapper checks types and shapes before the device, so each
+    refusal reads the same on the CPU as on the card, and nothing is
+    launched or counted."""
+    args, error, match = _refusal(kind)
+    before = (flashattn.BWD_LAUNCHES, dict(flashattn.BWD_LAUNCHES_BY_D))
+    with pytest.raises(error, match=match):
+        flashattn.flash_attention_bwd(*args)
+    assert (flashattn.BWD_LAUNCHES,
+            dict(flashattn.BWD_LAUNCHES_BY_D)) == before
+
+
+def test_float32_layout_check_takes_16_byte_pieces():
+    """The float32 kernels read 16-byte pieces (cp.async) too: a float32
+    view needs a 16-byte aligned base and strides of whole 4-element
+    pieces, as a bf16 one needs 8-element ones for TMA."""
+    ok = torch.zeros((1, 8, 2, 16)).transpose(1, 2)   # (B, S, H, d) view
+    flashattn._require_tma_layout("flash_attention", q=ok, k=ok, v=ok)
+    odd = torch.zeros((1, 2, 8, 18))[..., :16]         # rows of 72 bytes
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        flashattn._require_tma_layout("flash_attention", q=odd)
+    flat = torch.zeros(2 * 8 * 16 + 4)
+    shifted = flat[1:1 + 2 * 8 * 16].view(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        flashattn._require_tma_layout("flash_attention", k=shifted)
+    wide = torch.zeros((1, 2, 8, 20))[..., :16]        # rows of 80 bytes
+    flashattn._require_tma_layout("flash_attention_bwd", do=wide)

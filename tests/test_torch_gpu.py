@@ -850,13 +850,14 @@ def test_flash_backward_at_qwen2_training_layer(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("group", [1, 3, 6])
-def test_flash_backward_zero_key_tiles(cuda, group):
-    """bf16, causal with Sq < Sk: keys 70 to 299 (part of the second
-    64-key tile and three whole tiles) see no query, so their dK and dV
-    are exactly 0, though the gradients come from torch.empty."""
+def test_flash_backward_zero_key_tiles(cuda, group, dtype):
+    """Causal with Sq < Sk: keys 70 to 299 (part of the second 64-key tile
+    and three whole tiles) see no query, so their dK and dV are exactly 0,
+    though the gradients come from torch.empty."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    got = _flash_bwd_check(cuda, torch.bfloat16, 1, 6, 6 // group, 70, 300,
+    got = _flash_bwd_check(cuda, dtype, 1, 6, 6 // group, 70, 300,
                            64, True, seed=group)
     for t in got[1:]:
         assert bool((t[:, :, 70:] == 0).all())
@@ -864,34 +865,69 @@ def test_flash_backward_zero_key_tiles(cuda, group):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("group", [1, 3, 6])
-def test_flash_backward_head_groups(cuda, group, d):
-    """bf16, 6 query heads on 6 / group KV heads: G = 1 stores dK and dV
-    from the dK/dV kernel, G > 1 sums per-head partials in order; causal
-    and not, 150 rows (a ragged third tile), at every head dim."""
+def test_flash_backward_head_groups(cuda, group, d, dtype):
+    """6 query heads on 6 / group KV heads: G = 1 stores dK and dV from
+    the key-tile CTAs, G > 1 sums per-head partials in order; causal and
+    not, 150 rows (a ragged third tile), at every head dim."""
     torch.backends.cuda.matmul.allow_tf32 = False
     for causal in (True, False):
-        _flash_bwd_check(cuda, torch.bfloat16, 2, 6, 6 // group, 150, 150, d,
+        _flash_bwd_check(cuda, dtype, 2, 6, 6 // group, 150, 150, d,
                          causal, seed=10 * group + d)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("length", [1, 127, 128, 129])
-def test_flash_backward_tile_edges(cuda, length):
-    """bf16 lengths at the edges of the 64-row tiles, GQA 4:2, d 128:
+def test_flash_backward_tile_edges(cuda, length, dtype):
+    """Lengths at the edges of the 64-row tiles, GQA 4:2, d 128:
     `length` queries over 129 keys, and (length > 1) 129 queries over
     `length` keys and `length` of both, causal. One key alone has
     dQ = dK = 0, which a check relative to the largest magnitude cannot
     hold, so length 1 runs as Sq only."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    _flash_bwd_check(cuda, torch.bfloat16, 1, 4, 2, length, 129, 128, False,
+    _flash_bwd_check(cuda, dtype, 1, 4, 2, length, 129, 128, False,
                      seed=length)
     if length > 1:
-        _flash_bwd_check(cuda, torch.bfloat16, 1, 4, 2, 129, length, 128,
+        _flash_bwd_check(cuda, dtype, 1, 4, 2, 129, length, 128,
                          False, seed=length + 1)
-        _flash_bwd_check(cuda, torch.bfloat16, 1, 4, 2, length, length, 128,
+        _flash_bwd_check(cuda, dtype, 1, 4, 2, length, length, 128,
                          True, seed=length + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [1, 3, 6])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 127, 128, 129])
+def test_flash_f32_forward_groups_and_tile_edges(cuda, length, group):
+    """The float32 forward (64 query rows a CTA, 128 keys a step) with 6
+    query heads on 6 / group KV heads at lengths on either side of its
+    tile edges: `length` queries over 129 keys and 129 queries over
+    `length` keys, causal (Sq != Sk) and not, and `length` of both,
+    causal; strided (B, S, H, d) views at d = 128 and 80. Each within
+    2e-5 of the plain version, its LSE within 1e-5, bit-identical run to
+    run, one launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = np.random.default_rng(100 * group + length)
+    shapes = [(length, 129, True), (length, 129, False), (129, length, True),
+              (129, length, False), (length, length, True)]
+    for d in (128, 80):
+        for sq, sk, causal in shapes:
+            q, k, v = (_t(g.standard_normal((1, s, n, d)).astype(np.float32))
+                       .to(cuda).transpose(1, 2)
+                       for s, n in ((sq, 6), (sk, 6 // group),
+                                    (sk, 6 // group)))
+            before = flashattn.LAUNCHES
+            out, lse = flashattn.flash_attention_lse(q, k, v, causal=causal)
+            assert flashattn.LAUNCHES == before + 1
+            assert torch.equal(out, flashattn.flash_attention(
+                q, k, v, causal=causal))
+            want_lse = attention_ref_lse(q, k, v, causal=causal)[1]
+            assert _flash_err(out, q, k, v, causal) <= FLASH_TOL[
+                torch.float32]
+            assert float((lse - want_lse).abs().max()) <= 1e-5 * float(
+                want_lse.abs().max()) + 1e-5
 
 
 @pytest.mark.gpu

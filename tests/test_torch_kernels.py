@@ -461,17 +461,19 @@ def test_build_key_covers_the_shared_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["hopper.cuh"]
+    assert [h.name for h in headers] == ["cudacore.cuh", "hopper.cuh"]
     flags = _build.NVCC_FLAGS
     name = _build.library_path(flags, csrc)
     assert _build.library_path(flags, csrc) == name
     assert name == _build.library_path(flags)      # the copy is the tree
-    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
-    edited = _build.library_path(flags, csrc)
-    assert edited != name
+    seen = [name]
+    for header in headers:                         # each edit a new name
+        header.write_text(header.read_text() + "\n// edited\n")
+        seen.append(_build.library_path(flags, csrc))
+        assert seen[-1] not in seen[:-1]
     (csrc / "flashattn_bwd.cu").write_text(
         (csrc / "flashattn_bwd.cu").read_text() + "\n// edited\n")
-    assert _build.library_path(flags, csrc) not in (name, edited)
+    assert _build.library_path(flags, csrc) not in seen
     assert _build.library_path([*flags, "-DX"], csrc) != \
         _build.library_path(flags, csrc)
 
