@@ -18,8 +18,13 @@ otherwise. Phases, each of which fails the run:
      version, one PyTorch library call and the card's bound; the SpMM
      with the operator's work plan (printed: work items, split rows,
      heaviest chunk), run-to-run bit identity, and its heaviest work item
-     timed alone; gram and tsgemm bit-identical run to run, with their
-     device kernels per call counted by the profiler (one each);
+     timed alone; every SpMM row (here, 8 and 14) also prints its share
+     of the bound, its device kernels per call counted by the profiler
+     (the ring kernel, plus the combine kernel when the plan splits rows:
+     any other count fails) and the ring's launch as the card reports it
+     (stages, shared bytes a CTA, CTAs an SM, registers); gram and tsgemm
+     bit-identical run to run, with their device kernels per call
+     counted by the profiler (one each);
   5. end to end: `solve(op, 8, method="krylov_schur", block_size=4,
      num_blocks=8, tol=1e-5, max_iters=100)` on a CUDA TieredStore, with
      the launch counters zeroed just before and read just after; it must
@@ -695,6 +700,19 @@ def spmm_phase(torch, op, timer, x, width_row: bool = False):
     nbytes = (blocks.numel() * blocks.element_size() + cols.numel() * 4
               + ptr.numel() * 4 + x.numel() * 4 + y.numel() * 4)
     bms, by = bound_ms(nbytes, 2 * nb * bm * bn * k)
+    # device kernels a call: the ring kernel, and the combine kernel when
+    # the plan splits rows; and the ring's launch as the card reports it
+    per_call = kernels_per_call(torch, lambda: ops.spmm_blocks(
+        blocks, cols, ptr, x, plan=plan))
+    want_per_call = 1 + (plan.splits.shape[0] > 0)
+    ring = spmm_tile.occupancy(blocks.dtype, bm, bn,
+                               spmm_tile.kernel_width(k), op.device)
+    ring_note = (f"share of bound {bms / ms:.3f} | device kernels per call "
+                 f"{per_call:g} | ring: {ring['stages']} stages of "
+                 f"{ring['stage_bytes']} B, {ring['smem_bytes']} B shared "
+                 f"a CTA of {ring['threads']} threads, {ring['ctas_per_sm']}"
+                 f" CTAs an SM, {ring['registers']} registers a thread, "
+                 f"{ring['local_bytes']} B local")
     lib_ms, lib_note, bsr = None, "torch.sparse BSR @ dense", None
     try:
         with warnings.catch_warnings():   # "BSR support is in beta"
@@ -719,9 +737,12 @@ def spmm_phase(torch, op, timer, x, width_row: bool = False):
             f"{tuple(x.shape)} | rel err {err:.3e} (tol {KERNEL_TOL:g} of "
             f"Σ|terms|), max abs err {abs_err:.3e}, bit-identical run to "
             f"run | {ms:.3f} ms, plain {plain:.3f} ms, library {lib_ms} ms "
-            f"({lib_note}), bound {bms:.3f} ms ({by})")
+            f"({lib_note}), bound {bms:.3f} ms ({by}) | {ring_note}")
         if not err <= KERNEL_TOL:
             fail(f"{name} disagrees with its plain version: {err}")
+        if per_call != want_per_call:
+            fail(f"{name} launched {per_call} device kernels per call, not "
+                 f"{want_per_call}")
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/spmm_tile.cu",
                 "replaces": "src/repro/kernels/spmm_tile.py:50",
@@ -754,9 +775,12 @@ def spmm_phase(torch, op, timer, x, width_row: bool = False):
         f"{ms:.3f} ms, plain {plain:.3f} ms, library {lib_ms} ms "
         f"({lib_note}), bound {bms:.3f} ms ({by}) | heaviest work item "
         f"(block row {row}, blocks {lo}..{hi}) alone {heavy_ms:.3f} ms = "
-        f"{heavy_ms / ms:.2f} of the launch")
+        f"{heavy_ms / ms:.2f} of the launch | {ring_note}")
     if not err <= KERNEL_TOL:
         fail(f"{name} disagrees with its plain version: {err}")
+    if per_call != want_per_call:
+        fail(f"{name} launched {per_call} device kernels per call, not "
+             f"{want_per_call}")
     count = ((lambda: spmm_tile.LAUNCHES_BF16) if bf16 else
              (lambda: spmm_tile.LAUNCHES - spmm_tile.LAUNCHES_BF16))
     return {"name": name, "route": "cuda",

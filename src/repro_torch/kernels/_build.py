@@ -36,6 +36,7 @@ SIGNATURES = {
                                    _I, _I, _I, _P],
     "repro_spmm_blocksparse_bf16": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
                                     _I, _I, _I, _P],
+    "repro_spmm_blocksparse_config": [_I, _I, _I, _I, _I, _P],
     "repro_gram_f32": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _F, _I,
                        _I, _P],
     "repro_tsgemm_f32": [_P, _P, _P, _P, _LL, _I, _I, _F, _F, _I, _I, _P],

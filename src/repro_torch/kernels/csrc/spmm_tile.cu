@@ -7,13 +7,15 @@
 // resident in VMEM across the row.
 //
 // What bounds it on an H100: reading the dense blocks. With k = 4 columns
-// each 64x64 block (16 KB) feeds 32 KFLOP, two operations per byte, far
-// below both the float32 and the tensor-core ridge points. One matmat over
-// the n = 2^20 R-MAT image reads 12.86 GB of blocks: about 3.8 ms at
-// 3.35 TB/s. What kept the first design (one CTA per block row) far from
-// that was skew, not bytes: the image's heaviest block row holds 7,635
-// blocks, 160 times the mean, and one SM walked it alone for 0.87 of the
-// launch.
+// each 64x64 float32 block (16 KB) feeds 32 KFLOP, two operations per
+// byte, far below both the float32 and the tensor-core ridge points. One
+// matmat over the n = 2^20 R-MAT image reads 12.86 GB of blocks, about
+// 3.8 ms at 3.35 TB/s; its bf16 image reads 6.43 GB, a 1.93 ms bound.
+// Skew is the plan's job: the image's heaviest block row holds 7,635
+// blocks, 160 times the mean, so no block row may be walked by one CTA.
+// Below that, an SM has ~5,950 blocks to stream, which leaves ~1,100
+// clocks a block at the float32 bound and ~560 at the bf16 bound for the
+// shared-memory traffic and the FMAs.
 //
 // Design:
 //   * a work plan (spmm_tile.plan, built once per image on the host) cuts
@@ -21,158 +23,273 @@
 //     near-equal length; one CTA takes one work item (block row, [lo, hi),
 //     partial slot), and the items are ordered longest first, so the long
 //     chunks start while the short rows fill the tail;
-//   * a CTA walks its blocks in CSR order; a block is read with 16-byte
-//     coalesced loads into registers one block ahead of the product
-//     (software pipelining: the next block's loads are in flight while the
-//     current block is multiplied), then stored to shared memory with a
-//     padded row stride (bn + 1) so the threads of a warp that read
-//     different rows hit different banks;
-//   * the (bn x k) slab of X at block_cols[j] is gathered one block ahead
-//     too, from the same registers-then-shared-memory path;
-//   * the (bm x k) outputs stay in registers for the whole item and are
-//     written once: straight to Y for an unsplit row (zeros for an empty
-//     one, which does the job of the reference's empty-row mask), or to
-//     the item's slot of a partials scratch for a split row;
+//   * the copy engine streams the blocks: one thread issues bulk copies
+//     (cp.async.bulk, completing on an mbarrier) of each block, one run of
+//     bm*bn values, and of its X slab into a ring of kStages stages, so
+//     kStages - 1 blocks are in flight behind the one being multiplied and
+//     no block passes through registers on its way to shared memory. The
+//     X slab is copied one column group at a time, each group's rows
+//     x_stride = 32k + 16 bytes apart, so the lanes of different groups
+//     that read the same row of their group hit different banks. The
+//     issuing thread reads the next block column while the current block
+//     is multiplied; a __syncthreads per block releases the stage before
+//     it is refilled;
+//   * the products run from register tiles: a thread owns one column group
+//     g (8 columns: one 16-byte load a row of bf16, two of float32; 4
+//     columns of float32 blocks whose bn is not a multiple of 8) and up to
+//     kMaxRows rows of the block. Per block it loads its rows' values of
+//     the group (conflict-free: neighbouring lanes read neighbouring 16
+//     bytes), then for each column of the group one row of X (k floats,
+//     shared by the threads of that group), and does rows x 8 x k FMAs
+//     into float32 accumulators that live for the whole item. At 64x64
+//     and k = 4 that is 16 shared loads for 128 FMAs a thread, where the
+//     earlier design (blocks through registers into a padded tile, each
+//     FMA reading both operands from shared memory) read two per FMA;
+//   * once per item, each row's partials are summed over the column groups
+//     in group order through shared memory (the ring is free by then) and
+//     the (bm x k) tile is written once: straight to Y for an unsplit row
+//     (zeros for an empty one, which does the job of the reference's
+//     empty-row mask), or to the item's slot of a partials scratch;
 //   * a second launch sums each split row's partials in chunk order and
-//     writes Y. Every sum runs in an order fixed by the plan, with no
-//     atomics, so Y is bit-identical from run to run.
+//     writes Y. Every sum runs in an order fixed by the plan and the shape,
+//     with no atomics, so Y is bit-identical from run to run.
 //
-// bf16 images (the reference kernel's contract takes bf16 blocks): the
-// kernel is a template on the block type. A bf16 block is read as 16-byte
-// loads of 8 values each and widened with __bfloat162float into the same
-// float32 shared-memory tile, so the product, the plan, the partial slots
-// and the combine are the float32 image's, and a float32 image compiles to
-// the code it always had. The bf16 image halves the bytes (6.43 GB for
-// the n = 2^20 image, a 1.93 ms bound), but the inner loop still issues
-// two warp-wide shared-memory loads per column of every block, so this
-// first bf16 kernel is not expected to reach that bound.
+// X widths: the kernel is built for k = 1, 2, 4, 8 and 16 (a template on
+// k, so the accumulators are registers); the wrapper pads any other width
+// to the next of these with zero columns, and runs a wider X in slabs of
+// 16 columns. The launch shape (threads, group width, shared bytes) comes
+// from shape_of; spmm_tile.launch_config computes the same in Python.
+//
+// Order: every output sums its terms block by block in CSR order, within a
+// block column by column of the group, then over the groups in order.
+// float32 blocks with bn % 8 == 0 and bf16 blocks share the group width,
+// so a bf16 image gives the bits of the float32 image of its widened
+// values. bf16 values are widened exactly in registers (__bfloat1622float2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <cstring>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxOut = 8;    // outputs per thread: bm * k <= 2048
-constexpr int kMaxXVec = 4;   // X-slab floats per thread: bn * k <= 1024
+constexpr int kStages = 4;        // the ring's stages
+constexpr int kMaxRows = 4;       // block rows a thread owns in its group
+constexpr int kMinThreads = 32;
+constexpr int kMaxThreads = 512;
+constexpr int kBarBytes = 128;    // the stages' mbarriers, before the ring
+constexpr int kXPad = 16;         // bytes between two groups' X rows
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may have
+constexpr int kThreads = 256;     // the combine kernel's
 
-// One 16-byte load of a block: kElems consecutive values of one row,
-// widened to float32 for the shared-memory tile.
-template <typename T>
-struct BlockVec;
+// The launch shape of (bm x bn) blocks of `elem`-byte values against an X
+// of width k.
+struct Shape {
+  int gw;           // columns of a group
+  int groups;       // bn / gw
+  int gpad;         // groups rounded up to a power of two
+  int threads;      // a CTA's: the fewest that cover bm rows in kMaxRows
+  int a_bytes;      // one block
+  int x_stride;     // bytes from one group's X rows to the next's
+  int stage_bytes;  // a block and its X slab
+  int smem_bytes;   // barriers + max(ring, the group partials of the tile)
+};
+
+bool shape_of(int elem, int bm, int bn, int k, Shape* s) {
+  if (bm < 1 || bn < 1 || (k != 1 && k != 2 && k != 4 && k != 8 && k != 16))
+    return false;
+  s->gw = (elem == 2 || bn % 8 == 0) ? 8 : 4;
+  if (bn % s->gw != 0) return false;
+  s->groups = bn / s->gw;
+  s->gpad = 1;
+  while (s->gpad < s->groups) s->gpad *= 2;
+  s->threads = kMinThreads;
+  while (s->threads <= kMaxThreads &&
+         (s->gpad > s->threads || bm > kMaxRows * (s->threads / s->gpad)))
+    s->threads *= 2;
+  if (s->threads > kMaxThreads) return false;
+  s->a_bytes = bm * bn * elem;
+  s->x_stride = s->gw * k * 4 + kXPad;
+  s->stage_bytes = s->a_bytes + s->groups * s->x_stride;
+  const int ring = kStages * s->stage_bytes;
+  const int red = bm * s->groups * k * 4;
+  s->smem_bytes = kBarBytes + (ring > red ? ring : red);
+  return s->smem_bytes <= kMaxSmem;
+}
+
+// One row's values of a column group, widened to float32.
+template <typename T, int GW>
+struct GroupRow;
 
 template <>
-struct BlockVec<float> {
-  static constexpr int kElems = 4;
-  using Load = float4;
-  __device__ __forceinline__ static void widen(const float4& v, float* out) {
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
+struct GroupRow<float, 4> {
+  __device__ __forceinline__ static void load(const float* p, float* a) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    a[0] = v.x;
+    a[1] = v.y;
+    a[2] = v.z;
+    a[3] = v.w;
   }
 };
 
 template <>
-struct BlockVec<__nv_bfloat16> {
-  static constexpr int kElems = 8;
-  using Load = uint4;
-  __device__ __forceinline__ static void widen(const uint4& v, float* out) {
-    __nv_bfloat16 h[8];
-    memcpy(h, &v, sizeof(h));
+struct GroupRow<float, 8> {
+  __device__ __forceinline__ static void load(const float* p, float* a) {
+    GroupRow<float, 4>::load(p, a);
+    GroupRow<float, 4>::load(p + 4, a + 4);
+  }
+};
+
+template <>
+struct GroupRow<__nv_bfloat16, 8> {
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* a) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int u = 0; u < 8; ++u) out[u] = __bfloat162float(h[u]);
+    for (int u = 0; u < 4; ++u) {
+      __nv_bfloat162 h;
+      memcpy(&h, &w[u], sizeof(h));
+      const float2 f = __bfloat1622float2(h);  // .x: column 2u, .y: 2u + 1
+      a[2 * u] = f.x;
+      a[2 * u + 1] = f.y;
+    }
   }
 };
 
-// VEC: 16-byte loads per thread per block, bm*bn <= 256*VEC*kElems
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+// One row of the X slab: K floats.
+template <int K>
+__device__ __forceinline__ void load_x(const float* p, float* v) {
+  if constexpr (K == 1) {
+    v[0] = p[0];
+  } else if constexpr (K == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < K / 4; ++j) {
+      const float4 u = reinterpret_cast<const float4*>(p)[j];
+      v[4 * j] = u.x;
+      v[4 * j + 1] = u.y;
+      v[4 * j + 2] = u.z;
+      v[4 * j + 3] = u.w;
+    }
+  }
+}
+
+template <typename T, int GW, int K>
+__global__ void __launch_bounds__(kMaxThreads)
 spmm_blocksparse_kernel(const T* __restrict__ blocks,
                         const int* __restrict__ block_cols,
                         const int4* __restrict__ items,
                         const float* __restrict__ x, float* __restrict__ y,
-                        float* __restrict__ partials, int bm, int bn, int k) {
-  using V = BlockVec<T>;
-  using Load = typename V::Load;
-  constexpr int kE = V::kElems;
-  extern __shared__ float smem[];
-  const int ld = bn + 1;
-  float* a_s = smem;                // bm rows of stride ld
-  float* x_s = smem + bm * ld;      // bn x k, row-major
+                        float* __restrict__ partials, int bm, int bn,
+                        int groups, int gpad, int a_bytes, int x_stride,
+                        int stage_bytes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem + kBarBytes;
+  const uint32_t bars = smem_u32(smem);  // stage s's at bars + 8 s
   const int tid = threadIdx.x;
-  const int4 item = items[blockIdx.x];  // block row, lo, hi, slot or -1
+  const int4 item = items[blockIdx.x];   // block row, lo, hi, slot or -1
   const int lo = item.y;
-  const int hi = item.z;
-  const int blk_vec = (bm * bn) / kE;
-  const int x_elems = bn * k;
-  const int n_out = bm * k;
+  const int n = item.z - item.y;
 
-  float acc[kMaxOut];
-#pragma unroll
-  for (int t = 0; t < kMaxOut; ++t) acc[t] = 0.f;
+  // This thread's column group g and rows r0, r0 + step, ... below bm.
+  const int g = tid & (gpad - 1);
+  const int r0 = tid / gpad;
+  const int step = blockDim.x / gpad;
+  int my_rows = 0;
+  if (g < groups)
+    while (my_rows < kMaxRows && r0 + my_rows * step < bm) ++my_rows;
 
-  Load a_pre[VEC];
-  float x_pre[kMaxXVec];
-  auto fetch = [&](int j) {
-    const Load* blk = reinterpret_cast<const Load*>(
-        blocks + static_cast<size_t>(j) * bm * bn);
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const int e4 = tid + v * kThreads;
-      if (e4 < blk_vec) a_pre[v] = __ldg(blk + e4);
-    }
-    const float* xs = x + static_cast<size_t>(__ldg(block_cols + j)) * x_elems;
-#pragma unroll
-    for (int v = 0; v < kMaxXVec; ++v) {
-      const int e = tid + v * kThreads;
-      if (e < x_elems) x_pre[v] = __ldg(xs + e);
-    }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Block lo + t, of block column col, and its X slab into stage
+  // t % kStages, the slab one group's rows at a time.
+  const uint32_t tx_bytes = a_bytes + groups * GW * K * 4;
+  auto issue = [&](int t, int col) {
+    const int s = t % kStages;
+    const uint32_t bar = bars + 8 * s;
+    const uint32_t dst = smem_u32(ring) + s * stage_bytes;
+    mbar_expect_tx(bar, tx_bytes);
+    bulk_load(dst, blocks + static_cast<size_t>(lo + t) * bm * bn, a_bytes,
+              bar);
+    const float* xs = x + static_cast<size_t>(col) * bn * K;
+    for (int q = 0; q < groups; ++q)
+      bulk_load(dst + a_bytes + q * x_stride, xs + q * GW * K, GW * K * 4,
+                bar);
   };
+  if (tid == 0)
+    for (int t = 0; t < n && t < kStages; ++t)
+      issue(t, __ldg(block_cols + lo + t));
 
-  if (lo < hi) fetch(lo);
-  for (int j = lo; j < hi; ++j) {
-    __syncthreads();  // the previous block's products are done with smem
+  float acc[kMaxRows][K];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const int e4 = tid + v * kThreads;
-      if (e4 < blk_vec) {
-        const int e = e4 * kE;          // bn % kE == 0: the kE share a row
-        float* dst = a_s + (e / bn) * ld + (e % bn);
-        float w[kE];
-        V::widen(a_pre[v], w);
+  for (int i = 0; i < kMaxRows; ++i)
 #pragma unroll
-        for (int u = 0; u < kE; ++u) dst[u] = w[u];
+    for (int q = 0; q < K; ++q) acc[i][q] = 0.f;
+
+  for (int t = 0; t < n; ++t) {
+    const int s = t % kStages;
+    const bool refill = tid == 0 && t + kStages < n;
+    // in flight while this block is multiplied
+    const int next_col = refill ? __ldg(block_cols + lo + t + kStages) : 0;
+    mbar_wait(bars + 8 * s, (t / kStages) & 1);
+    if (my_rows > 0) {
+      const unsigned char* st = ring + s * stage_bytes;
+      const T* a_s = reinterpret_cast<const T*>(st) + r0 * bn + g * GW;
+      float a[kMaxRows][GW];
+#pragma unroll
+      for (int i = 0; i < kMaxRows; ++i)
+        if (i < my_rows) GroupRow<T, GW>::load(a_s + i * step * bn, a[i]);
+      const float* x_s =
+          reinterpret_cast<const float*>(st + a_bytes + g * x_stride);
+#pragma unroll
+      for (int c = 0; c < GW; ++c) {
+        float xv[K];
+        load_x<K>(x_s + c * K, xv);
+#pragma unroll
+        for (int i = 0; i < kMaxRows; ++i) {
+          if (i < my_rows) {
+#pragma unroll
+            for (int q = 0; q < K; ++q)
+              acc[i][q] = fmaf(a[i][c], xv[q], acc[i][q]);
+          }
+        }
       }
     }
-#pragma unroll
-    for (int v = 0; v < kMaxXVec; ++v) {
-      const int e = tid + v * kThreads;
-      if (e < x_elems) x_s[e] = x_pre[v];
-    }
-    __syncthreads();
-    if (j + 1 < hi) fetch(j + 1);  // in flight during this block's product
-#pragma unroll
-    for (int t = 0; t < kMaxOut; ++t) {
-      const int o = tid + t * kThreads;
-      if (o < n_out) {
-        const int i = o / k;
-        const int q = o - i * k;
-        const float* arow = a_s + i * ld;
-        float s = acc[t];
-        for (int c = 0; c < bn; ++c) s = fmaf(arow[c], x_s[c * k + q], s);
-        acc[t] = s;
-      }
-    }
+    __syncthreads();  // every thread is done with stage s
+    if (refill) issue(t + kStages, next_col);
   }
 
-  float* yr = item.w < 0 ? y + static_cast<size_t>(item.x) * n_out
-                         : partials + static_cast<size_t>(item.w) * n_out;
+  // Each row's group partials, summed in group order; the ring is free
+  // (every copy issued has landed and been read).
+  float* red = reinterpret_cast<float*>(ring);  // (bm, groups, K)
 #pragma unroll
-  for (int t = 0; t < kMaxOut; ++t) {
-    const int o = tid + t * kThreads;
-    if (o < n_out) yr[o] = acc[t];
+  for (int i = 0; i < kMaxRows; ++i) {
+    if (i < my_rows) {
+      float* p = red + (static_cast<size_t>(r0 + i * step) * groups + g) * K;
+#pragma unroll
+      for (int q = 0; q < K; ++q) p[q] = acc[i][q];
+    }
+  }
+  __syncthreads();
+  const int n_out = bm * K;
+  float* out = item.w < 0 ? y + static_cast<size_t>(item.x) * n_out
+                          : partials + static_cast<size_t>(item.w) * n_out;
+  for (int o = tid; o < n_out; o += blockDim.x) {
+    const float* p = red + static_cast<size_t>(o / K) * groups * K + o % K;
+    float v = p[0];
+    for (int j = 1; j < groups; ++j) v += p[j * K];
+    out[o] = v;
   }
 }
 
@@ -193,19 +310,40 @@ spmm_blocksparse_combine_kernel(const int* __restrict__ splits,
   }
 }
 
-template <typename T, int VEC>
-cudaError_t launch(const T* blocks, const int* block_cols, const int4* items,
-                   int n_items, const float* x, float* y, float* partials,
-                   int bm, int bn, int k, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(bm * (bn + 1) + bn * k) *
-                      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      spmm_blocksparse_kernel<T, VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  spmm_blocksparse_kernel<T, VEC><<<n_items, kThreads, smem, stream>>>(
-      blocks, block_cols, items, x, y, partials, bm, bn, k);
-  return cudaGetLastError();
+template <typename T>
+using KernelFn = void (*)(const T*, const int*, const int4*, const float*,
+                          float*, float*, int, int, int, int, int, int, int);
+
+template <typename T, int GW>
+KernelFn<T> kernel_of_width(int k) {
+  switch (k) {
+    case 1: return spmm_blocksparse_kernel<T, GW, 1>;
+    case 2: return spmm_blocksparse_kernel<T, GW, 2>;
+    case 4: return spmm_blocksparse_kernel<T, GW, 4>;
+    case 8: return spmm_blocksparse_kernel<T, GW, 8>;
+    case 16: return spmm_blocksparse_kernel<T, GW, 16>;
+    default: return nullptr;
+  }
+}
+
+// The kernel for a shape of shape_of, with its dynamic shared memory
+// allowed; nullptr if there is none or the attribute is refused.
+template <typename T>
+KernelFn<T> kernel_for(const Shape& sh, int k, cudaError_t* err) {
+  KernelFn<T> kernel = nullptr;
+  if (sh.gw == 8) {
+    kernel = kernel_of_width<T, 8>(k);
+  } else if constexpr (std::is_same<T, float>::value) {
+    kernel = kernel_of_width<T, 4>(k);
+  }
+  if (kernel == nullptr) {
+    *err = cudaErrorInvalidValue;
+    return nullptr;
+  }
+  *err = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              sh.smem_bytes);
+  return *err == cudaSuccess ? kernel : nullptr;
 }
 
 template <typename T>
@@ -213,37 +351,56 @@ int spmm(const T* blocks, const int* block_cols, const int* items,
          int n_items, const int* splits, int n_split, const float* x,
          float* y, float* partials, int bm, int bn, int k, int device,
          void* stream) {
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  const int vec = (bm * bn / BlockVec<T>::kElems + kThreads - 1) / kThreads;
-  const int4* it = reinterpret_cast<const int4*>(items);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Shape sh;
+  if (!shape_of(sizeof(T), bm, bn, k, &sh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  KernelFn<T> kernel = kernel_for<T>(sh, k, &err);
+  if (kernel == nullptr || n_items == 0) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (vec <= 1)
-    err = launch<T, 1>(blocks, block_cols, it, n_items, x, y, partials, bm,
-                       bn, k, s);
-  else if (vec <= 2)
-    err = launch<T, 2>(blocks, block_cols, it, n_items, x, y, partials, bm,
-                       bn, k, s);
-  else if (vec <= 4)
-    err = launch<T, 4>(blocks, block_cols, it, n_items, x, y, partials, bm,
-                       bn, k, s);
-  else
-    err = cudaErrorInvalidValue;
+  kernel<<<n_items, sh.threads, sh.smem_bytes, s>>>(
+      blocks, block_cols, reinterpret_cast<const int4*>(items), x, y,
+      partials, bm, bn, sh.groups, sh.gpad, sh.a_bytes, sh.x_stride,
+      sh.stage_bytes);
+  err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 0) return static_cast<int>(err);
   spmm_blocksparse_combine_kernel<<<n_split, kThreads, 0, s>>>(
       splits, partials, y, bm * k);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int config(int bm, int bn, int k, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Shape sh;
+  if (!shape_of(sizeof(T), bm, bn, k, &sh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  KernelFn<T> kernel = kernel_for<T>(sh, k, &err);
+  if (kernel == nullptr) return static_cast<int>(err);
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, kernel, sh.threads, sh.smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int values[] = {sh.threads, kStages, sh.smem_bytes, ctas, sh.gw,
+                        attr.numRegs, static_cast<int>(attr.localSizeBytes),
+                        sh.stage_bytes};
+  for (int i = 0; i < 8; ++i) out[i] = values[i];
+  return 0;
+}
+
 }  // namespace
 
 // Shape limits the caller checks first: bn % 4 == 0 (float32 blocks) or
-// bn % 8 == 0 (bf16 blocks), bm * bn <= 4096, bm * k <= 2048,
-// bn * k <= 1024; blocks, x and items 16-byte aligned. items (n_items, 4)
-// and splits (n_split, 3) are a plan of the image (spmm_tile.plan): every
-// block row is covered, and partials holds one (bm x k) slot per chunk of
-// a split row.
+// bn % 8 == 0 (bf16 blocks), bm * bn <= 4096, k one of 1, 2, 4, 8, 16;
+// blocks, x and items 16-byte aligned. items (n_items, 4) and splits
+// (n_split, 3) are a plan of the image (spmm_tile.plan): every block row
+// is covered, and partials holds one (bm x k) slot per chunk of a split
+// row. A shape the kernel does not take returns cudaErrorInvalidValue.
 extern "C" int repro_spmm_blocksparse_f32(const float* blocks,
                                           const int* block_cols,
                                           const int* items, int n_items,
@@ -266,4 +423,15 @@ extern "C" int repro_spmm_blocksparse_bf16(const void* blocks,
   return spmm(static_cast<const __nv_bfloat16*>(blocks), block_cols, items,
               n_items, splits, n_split, x, y, partials, bm, bn, k, device,
               stream);
+}
+
+// The launch the kernel makes for (bm x bn) blocks, float32 (bf16 = 0) or
+// bf16, against an X of width k, on `device`: out[0..7] = threads a CTA,
+// the ring's stages, shared bytes a CTA, CTAs an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the column group's
+// width, registers a thread, local (spilled) bytes a thread, bytes a stage.
+extern "C" int repro_spmm_blocksparse_config(int bf16, int bm, int bn, int k,
+                                             int device, int* out) {
+  return bf16 ? config<__nv_bfloat16>(bm, bn, k, device, out)
+              : config<float>(bm, bn, k, device, out);
 }

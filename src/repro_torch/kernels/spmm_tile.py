@@ -12,9 +12,16 @@ run to run. Its plain version is `spmm_ref.spmm_ref`.
 
 Blocks may be float32 or bf16 (a bf16 image halves the bytes the kernel
 reads); X and Y are float32, and every product and sum is float32.
+
+A CTA streams its item's blocks and X slabs by bulk copy into a ring of
+STAGES shared-memory stages and multiplies from register tiles (one
+column group and up to MAX_ROWS rows a thread); `launch_config` is the
+launch the kernel makes for a shape, `occupancy` what the card reports
+for it.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -138,28 +145,71 @@ def plan(row_ptr, *, chunk: int | None = None, device=None) -> Plan:
 
 _plan = plan   # `spmm_blocksparse` takes a `plan` argument of the same name
 
+# The kernel's launch shape (csrc/spmm_tile.cu: kStages, kMaxRows, ...).
+WIDTHS = (1, 2, 4, 8, 16)   # X widths the kernel is built for
+STAGES = 4                  # the ring's stages
+MAX_ROWS = 4                # block rows a thread owns in its column group
+MIN_THREADS, MAX_THREADS = 32, 512
+BAR_BYTES, X_PAD, MAX_SMEM = 128, 16, 232448
 
-def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
-                     row_ptr: torch.Tensor, x: torch.Tensor, *,
-                     plan: Plan | None = None) -> torch.Tensor:
-    """Y = A @ X for a block-sparse A.
 
-    blocks:     (nb, bm, bn) float32 or bfloat16 (then bn % 8 == 0)
-    block_cols: (nb,) int32
-    row_ptr:    (n_block_rows + 1,) int32
-    x:          (n_block_cols*bn, k) float32, or bfloat16, which is
-                widened to float32 once here (exactly)
-    plan:       the work plan of this row_ptr tensor (`plan(row_ptr)`),
-                refused for any other; without one the wrapper builds it
-                from row_ptr (a copy to the host)
-    returns     (n_block_rows*bm, k) float32
+def kernel_width(k: int) -> int:
+    """The X width the kernel runs for k columns: k if it is one of
+    WIDTHS, else the next of them (the wrapper pads X with zero columns);
+    wider than 16, X runs in slabs of 16."""
+    return next((w for w in WIDTHS if w >= k), WIDTHS[-1])
 
-    Types and shapes are checked before the device, so a refusal reads
-    the same on any device. One call is one count in LAUNCHES (and in
-    LAUNCHES_BF16 for bf16 blocks, and in LAUNCHES_BY_K[k]), though a plan with split rows
-    launches a second, combining kernel.
-    """
-    global LAUNCHES, LAUNCHES_BF16
+
+def launch_config(dtype: torch.dtype, bm: int, bn: int, k: int) -> dict:
+    """The launch `csrc/spmm_tile.cu`'s `shape_of` makes for (bm, bn)
+    blocks of `dtype` against an X of width k (one of WIDTHS): the column
+    group's width, the groups and their power-of-two padding, the CTA's
+    threads (the fewest, from 32 to 512, that give no thread more than
+    MAX_ROWS rows), the bytes of a block, of a stage and of the CTA's
+    shared memory. ValueError for a shape the kernel does not take."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    gw = 8 if elem == 2 or bn % 8 == 0 else 4
+    if bm < 1 or bn < 1 or k not in WIDTHS or bn % gw:
+        raise ValueError(f"spmm_blocksparse: no kernel for {dtype} blocks "
+                         f"({bm}, {bn}) at k={k}")
+    groups = bn // gw
+    gpad = 1 << (groups - 1).bit_length()
+    threads = MIN_THREADS
+    while threads <= MAX_THREADS and (gpad > threads or
+                                      bm > MAX_ROWS * (threads // gpad)):
+        threads *= 2
+    a_bytes = bm * bn * elem
+    stage = a_bytes + groups * (gw * k * 4 + X_PAD)
+    smem = BAR_BYTES + max(STAGES * stage, bm * groups * k * 4)
+    if threads > MAX_THREADS or smem > MAX_SMEM:
+        raise ValueError(f"spmm_blocksparse: no kernel for {dtype} blocks "
+                         f"({bm}, {bn}) at k={k}: {threads} threads, "
+                         f"{smem} bytes of shared memory")
+    return {"group_width": gw, "groups": groups, "groups_padded": gpad,
+            "threads": threads, "stages": STAGES, "block_bytes": a_bytes,
+            "stage_bytes": stage, "smem_bytes": smem}
+
+
+def occupancy(dtype: torch.dtype, bm: int, bn: int, k: int,
+              device=None) -> dict:
+    """What the card reports for the kernel at this shape (k one of
+    WIDTHS): threads, stages, shared bytes a CTA, CTAs an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the group's width,
+    registers and local (spilled) bytes a thread, bytes a stage."""
+    device = torch.device("cuda" if device is None else device)
+    out = (ctypes.c_int * 8)()
+    err = _build.lib().repro_spmm_blocksparse_config(
+        int(dtype == torch.bfloat16), bm, bn, k,
+        device.index if device.index is not None else
+        torch.cuda.current_device(), out)
+    _build.check(err, "spmm_blocksparse config")
+    keys = ("threads", "stages", "smem_bytes", "ctas_per_sm",
+            "group_width", "registers", "local_bytes", "stage_bytes")
+    return dict(zip(keys, list(out)))
+
+
+def _check_shapes(blocks, block_cols, row_ptr, x) -> None:
+    """Types, shapes and alignment, before the device is looked at."""
     require_dtype("spmm_blocksparse", F32_BF16, blocks=blocks, x=x)
     if blocks.dim() != 3 or x.dim() != 2 or row_ptr.dim() != 1:
         raise ValueError("spmm_blocksparse: blocks (nb, bm, bn), x (n, k), "
@@ -178,11 +228,28 @@ def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
         raise ValueError(f"spmm_blocksparse: unsupported {blocks.dtype} block "
                          f"({bm}, {bn}) with k={k} (needs bn % {per_load} == "
                          f"0, bm*bn <= 4096, bm*k <= 2048, bn*k <= 1024)")
+    launch_config(blocks.dtype, bm, bn, kernel_width(k))
+    # the bulk copies move 16-byte units; a bf16 x is widened into a new
+    # tensor, which is aligned
+    if blocks.data_ptr() % 16:
+        raise ValueError("spmm_blocksparse: blocks must be 16-byte aligned")
+    if x.dtype == torch.float32 and x.data_ptr() % 16:
+        raise ValueError("spmm_blocksparse: x must be 16-byte aligned")
+
+
+def launch_with(library, blocks: torch.Tensor, block_cols: torch.Tensor,
+                row_ptr: torch.Tensor, x: torch.Tensor, *,
+                plan: Plan | None = None) -> torch.Tensor:
+    """`spmm_blocksparse` through the kernel library that `library()`
+    returns, once the inputs have passed their checks (`_build.lib` for
+    the port's; `spmm_compare` passes another tree's build, whose C
+    interface is the same). It counts nothing in LAUNCHES."""
+    _check_shapes(blocks, block_cols, row_ptr, x)
+    nb, bm, bn = blocks.shape
+    k = x.shape[1]
     dev = require_cuda("spmm_blocksparse", blocks=blocks, x=x)
     require_int32("spmm_blocksparse", dev, block_cols=block_cols,
                   row_ptr=row_ptr)
-    if blocks.data_ptr() % 16:
-        raise ValueError("spmm_blocksparse: blocks must be 16-byte aligned")
     x = x.float()
     n_block_rows = row_ptr.shape[0] - 1
     if plan is None:
@@ -201,19 +268,65 @@ def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
     y = torch.empty((n_block_rows * bm, k), dtype=torch.float32, device=dev)
     if n_block_rows == 0:
         return y
-    partials = torch.empty((plan.n_partials, bm * k), dtype=torch.float32,
-                           device=dev)
     device, stream = _build.device_and_stream(x)
-    bf16 = blocks.dtype == torch.bfloat16
-    launch = (_build.lib().repro_spmm_blocksparse_bf16 if bf16
-              else _build.lib().repro_spmm_blocksparse_f32)
-    err = launch(
-        blocks.data_ptr(), block_cols.data_ptr(), plan.items.data_ptr(),
-        plan.items.shape[0], plan.splits.data_ptr(), plan.splits.shape[0],
-        x.data_ptr(), y.data_ptr(), partials.data_ptr(), bm, bn, k, device,
-        stream)
-    _build.check(err, "spmm_blocksparse")
-    LAUNCHES += 1
-    LAUNCHES_BF16 += bf16
-    LAUNCHES_BY_K[k] = LAUNCHES_BY_K.get(k, 0) + 1
+    launch = (library().repro_spmm_blocksparse_bf16
+              if blocks.dtype == torch.bfloat16
+              else library().repro_spmm_blocksparse_f32)
+    for c0 in range(0, k, WIDTHS[-1]):     # one slab unless k > 16
+        w = min(k - c0, WIDTHS[-1])
+        kw = kernel_width(w)
+        if kw == k:
+            xs, ys = x, y
+        else:                              # zero columns up to kw
+            xs = torch.zeros((x.shape[0], kw), dtype=torch.float32,
+                             device=dev)
+            xs[:, :w] = x[:, c0:c0 + w]
+            ys = torch.empty((n_block_rows * bm, kw), dtype=torch.float32,
+                             device=dev)
+        if not _build.aligned16(ys):
+            raise ValueError("spmm_blocksparse: y must be 16-byte aligned")
+        partials = torch.empty((plan.n_partials, bm * kw),
+                               dtype=torch.float32, device=dev)
+        err = launch(
+            blocks.data_ptr(), block_cols.data_ptr(), plan.items.data_ptr(),
+            plan.items.shape[0], plan.splits.data_ptr(),
+            plan.splits.shape[0], xs.data_ptr(), ys.data_ptr(),
+            partials.data_ptr(), bm, bn, kw, device, stream)
+        _build.check(err, "spmm_blocksparse")
+        if ys is not y:
+            y[:, c0:c0 + w] = ys[:, :w]
+    return y
+
+
+def spmm_blocksparse(blocks: torch.Tensor, block_cols: torch.Tensor,
+                     row_ptr: torch.Tensor, x: torch.Tensor, *,
+                     plan: Plan | None = None) -> torch.Tensor:
+    """Y = A @ X for a block-sparse A.
+
+    blocks:     (nb, bm, bn) float32 or bfloat16 (then bn % 8 == 0),
+                16-byte aligned
+    block_cols: (nb,) int32
+    row_ptr:    (n_block_rows + 1,) int32
+    x:          (n_block_cols*bn, k) float32, 16-byte aligned, or
+                bfloat16, which is widened to float32 once here (exactly)
+    plan:       the work plan of this row_ptr tensor (`plan(row_ptr)`),
+                refused for any other; without one the wrapper builds it
+                from row_ptr (a copy to the host)
+    returns     (n_block_rows*bm, k) float32
+
+    The kernel runs X widths of WIDTHS: another k is padded with zero
+    columns to the next (a copy of X), and k > 16 runs in slabs of 16
+    (one kernel launch each). Types, shapes and alignment are checked
+    before the device, so a refusal reads the same on any device. One
+    call is one count in LAUNCHES (and in LAUNCHES_BF16 for bf16 blocks,
+    and in LAUNCHES_BY_K[k]), though a plan with split rows launches a
+    second, combining kernel.
+    """
+    global LAUNCHES, LAUNCHES_BF16
+    y = launch_with(_build.lib, blocks, block_cols, row_ptr, x, plan=plan)
+    if row_ptr.shape[0] > 1:
+        k = x.shape[1]
+        LAUNCHES += 1
+        LAUNCHES_BF16 += blocks.dtype == torch.bfloat16
+        LAUNCHES_BY_K[k] = LAUNCHES_BY_K.get(k, 0) + 1
     return y

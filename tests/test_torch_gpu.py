@@ -24,7 +24,11 @@ a bf16 pair (P_hi + P_lo, 16 bits) on the tensor cores. A solve
 suspended at a restart boundary and resumed on the card is held bit for
 bit to the uninterrupted one under `torch.use_deterministic_algorithms`
 (which needs `CUBLAS_WORKSPACE_CONFIG` set before cuBLAS starts: the
-CholQR's small products run on cuBLAS).
+CholQR's small products run on cuBLAS). The SpMM ring kernel's own
+cases on random normal blocks, which cancel, hold it and the plain
+version to float32's sum bound of the float64 product (γ_{m+1}·Σ|terms|
+for m terms, any order), and on small integers to the plain version bit
+for bit.
 """
 import os
 
@@ -36,6 +40,7 @@ from repro_torch.graphs import pack_tiles, rmat_graph
 from repro_torch.kernels import flashattn, gram, ops, spmm_tile, tsgemm
 from repro_torch.kernels.flashattn_ref import (attention_ref_lse,
                                                flash_attention_bwd_ref)
+from repro_torch.kernels.spmm_ref import float32_sum_bound, spmm_f64
 
 # cuBLAS reads it when its first handle is made; set before any test runs
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -205,6 +210,152 @@ def test_spmm_bf16_kernel_splits_heavy_rows(cuda, chunk):
     with pytest.raises(ValueError, match="bn % 8 == 0"):
         ops.spmm_blocks(b16[:, :, :4].contiguous(), cols, ptr,
                         x[:n_cols * 4])
+
+
+def _ring_image(g, bm, bn, counts, n_cols, ints=False):
+    """A block image of `counts` blocks per block row (0 for an empty
+    row) over n_cols block columns: float32 blocks (small integers with
+    `ints`) and their int32 block columns and row_ptr, on the CPU."""
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nb = int(ptr[-1])
+    if ints:
+        blocks = g.integers(-2, 3, (nb, bm, bn)).astype(np.float32)
+    else:
+        blocks = g.standard_normal((nb, bm, bn)).astype(np.float32)
+    cols = g.integers(0, n_cols, nb).astype(np.int32)
+    return _t(blocks), _t(cols), _t(ptr)
+
+
+def _within_sum_bound(got, blocks, cols, ptr, x):
+    """got and the plain version each within float32_sum_bound of the
+    float64 product: γ_{m+1}·Σ|terms| for a row of m nonzero terms, the
+    bound on any float32 sum of those terms, whatever its order (random
+    normal blocks cancel, so a tolerance on the output's magnitude does
+    not fit them)."""
+    none = torch.zeros(0, dtype=torch.int32, device=x.device)
+    y64, terms, count = spmm_f64(blocks, cols, ptr, (none, none,
+                                                     none.float()), x)
+    bound = float32_sum_bound(terms, count, 0.0)
+    want = ops.spmm_blocks(blocks, cols, ptr, x, impl="ref")
+    for out in (got, want):
+        assert torch.all((out.double() - y64).abs() <= bound)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm,k", [
+    (b, k) for b in (8, 16, 32, 64) for k in (1, 2, 4, 8)] + [
+    (64, 3), (64, 5), (64, 16), (32, 24), (8, 40)])
+def test_spmm_ring_kernel_vs_plain_on_card(cuda, dtype, bm, k):
+    """The ring kernel at every block size and width the suite draws
+    (8×8 panels of the sharded layer included), and at widths it pads (3,
+    5) or runs in 16-column slabs (24, 40), on an image with empty rows
+    and split rows: bit-identical over
+    three calls, within float32's sum bound of the float64 product, as
+    the plain version is, and, with bf16 blocks, bit-equal to the float32 image of
+    the widened values (both sum in one order)."""
+    g = np.random.default_rng(1000 * bm + k)
+    n_rows, n_cols = 40, 24
+    counts = g.integers(0, 12, n_rows)
+    counts[[3, 17]] = 0
+    counts[7] = 90
+    blocks, cols, ptr = (t.to(cuda) for t in _ring_image(
+        g, bm, bm, counts, n_cols))
+    blocks = blocks.to(dtype)
+    x = _t(g.standard_normal((n_cols * bm, k)).astype(np.float32)).to(cuda)
+    plan = spmm_tile.plan(ptr, chunk=16)
+    assert plan.splits.shape[0] > 0
+    before = spmm_tile.LAUNCHES, spmm_tile.LAUNCHES_BY_K.get(k, 0)
+    got = ops.spmm_blocks(blocks, cols, ptr, x, plan=plan)
+    assert (spmm_tile.LAUNCHES, spmm_tile.LAUNCHES_BY_K[k]) == (
+        before[0] + 1, before[1] + 1)
+    for _ in range(2):
+        assert torch.equal(got, ops.spmm_blocks(blocks, cols, ptr, x,
+                                                plan=plan))
+    _within_sum_bound(got, blocks, cols, ptr, x)
+    assert torch.all(got.reshape(n_rows, bm, k)[[3, 17]] == 0)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, ops.spmm_blocks(blocks.float(), cols, ptr,
+                                                x, plan=plan))
+
+
+@pytest.mark.gpu
+def test_spmm_ring_kernel_float32_groups_of_four_on_card(cuda):
+    """float32 blocks whose bn is not a multiple of 8 (12×12: column
+    groups of 4 columns), within float32's sum bound of the float64
+    product as the plain version is."""
+    g = np.random.default_rng(12)
+    counts = g.integers(0, 30, 20)
+    blocks, cols, ptr = (t.to(cuda) for t in _ring_image(
+        g, 12, 12, counts, 9))
+    for k in (1, 4, 8):
+        x = _t(g.standard_normal((9 * 12, k)).astype(np.float32)).to(cuda)
+        assert spmm_tile.launch_config(torch.float32, 12, 12,
+                                       k)["group_width"] == 4
+        got = ops.spmm_blocks(blocks, cols, ptr, x)
+        assert torch.equal(got, ops.spmm_blocks(blocks, cols, ptr, x))
+        _within_sum_bound(got, blocks, cols, ptr, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [4, 8])
+def test_spmm_items_around_the_ring_on_card(cuda, dtype, k):
+    """Work items shorter than, as long as and longer than the ring (1,
+    S, S + 1 and 3S + 2 blocks for S stages) and empty rows, whole and
+    split into chunks of S blocks, on small integers (every sum exact in
+    float32, so any order gives the same bits): equal to the plain
+    version."""
+    s = spmm_tile.STAGES
+    cfg = spmm_tile.occupancy(dtype, 64, 64, k, cuda)
+    assert cfg["stages"] == s and cfg["ctas_per_sm"] >= 1
+    g = np.random.default_rng(7 + k)
+    counts = np.array([0, 1, s, s + 1, 3 * s + 2, 0, 2, s - 1, 3 * s + 2])
+    blocks, cols, ptr = (t.to(cuda) for t in _ring_image(
+        g, 64, 64, counts, 16, ints=True))
+    blocks = blocks.to(dtype)
+    x = _t(g.integers(-2, 3, (16 * 64, k)).astype(np.float32)).to(cuda)
+    want = ops.spmm_blocks(blocks, cols, ptr, x, impl="ref")
+    for chunk in (None, s):
+        plan = spmm_tile.plan(ptr, chunk=chunk)
+        assert (plan.splits.shape[0] > 0) == (chunk == s)
+        got = ops.spmm_blocks(blocks, cols, ptr, x, plan=plan)
+        assert torch.equal(got, want)
+        assert torch.all(got.reshape(-1, 64, k)[[0, 5]] == 0)
+
+
+@pytest.mark.gpu
+def test_spmm_launch_config_on_card(cuda):
+    """The card's launch of the kernel is the one `launch_config`
+    computes, at the rmat image's 64×64 blocks, with no spilled bytes at
+    k = 1, 2, 4, 8."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (1, 2, 4, 8):
+            want = spmm_tile.launch_config(dtype, 64, 64, k)
+            got = spmm_tile.occupancy(dtype, 64, 64, k, cuda)
+            for key in ("threads", "stages", "smem_bytes", "stage_bytes"):
+                assert got[key] == want[key], (dtype, k, key)
+            assert got["group_width"] == want["group_width"] == 8
+            assert got["local_bytes"] == 0, (dtype, k, got)
+            assert got["ctas_per_sm"] >= 2, (dtype, k, got)
+
+
+@pytest.mark.gpu
+def test_spmm_refuses_misaligned_x_on_card(cuda):
+    """The bulk copies move 16-byte units: an X that starts 4 bytes into
+    a buffer is refused before launch, and nothing is counted."""
+    g = np.random.default_rng(3)
+    blocks, cols, ptr = (t.to(cuda) for t in _ring_image(
+        g, 64, 64, np.array([2, 0, 3]), 4))
+    flat = torch.zeros(4 * 64 * 4 + 4, device=cuda)
+    x = flat[1:-3].view(4 * 64, 4)
+    before = spmm_tile.LAUNCHES
+    with pytest.raises(ValueError, match="x must be 16-byte aligned"):
+        ops.spmm_blocks(blocks, cols, ptr, x)
+    assert spmm_tile.LAUNCHES == before
+    x = flat[4:].view(4 * 64, 4)                   # 16 bytes in: aligned
+    _within_sum_bound(ops.spmm_blocks(blocks, cols, ptr, x), blocks, cols,
+                      ptr, x)
 
 
 def _gram_case(cuda, n, m, b, seed):

@@ -196,6 +196,80 @@ def test_spmm_wrapper_refuses_what_the_kernel_does_not_take():
             spmm_tile.spmm_blocksparse(b, cols, ptr, xx)
 
 
+def test_spmm_wrapper_refuses_misaligned_x():
+    """The ring kernel's bulk copies move 16-byte units: a float32 X that
+    starts 4 bytes into its buffer is refused before the device is looked
+    at; a bf16 X is widened into a new tensor, so its offset is free."""
+    g = np.random.default_rng(53)
+    ptr = _t(np.array([0, 1, 1, 2], np.int32))
+    cols = _t(np.array([0, 1], np.int32))
+    blocks = _t(g.standard_normal((2, 16, 16)).astype(np.float32))
+    flat = torch.zeros(32 * 4 + 4)
+    with pytest.raises(ValueError, match="x must be 16-byte aligned"):
+        spmm_tile.spmm_blocksparse(blocks, cols, ptr, flat[1:-3].view(32, 4))
+    with pytest.raises(ValueError, match="blocks must be 16-byte aligned"):
+        spmm_tile.spmm_blocksparse(
+            torch.zeros(2 * 256 + 1)[1:].view(2, 16, 16), cols, ptr,
+            flat[4:].view(32, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        spmm_tile.spmm_blocksparse(
+            blocks, cols, ptr, flat.bfloat16()[1:-3].view(32, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        spmm_tile.spmm_blocksparse(blocks, cols, ptr, flat[4:].view(32, 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_launch_config_covers_every_shape(dtype):
+    """Every shape the wrapper takes (bn % 4 == 0 for float32 blocks, % 8
+    for bf16, bm·bn ≤ 4096, bm·k ≤ 2048, bn·k ≤ 1024) has a launch of the
+    ring kernel: X widths padded to WIDTHS and run in slabs of 16, at most
+    MAX_ROWS rows a thread within MAX_THREADS, and the ring and the
+    group partials within a block's shared memory."""
+    step = 16 // torch.empty((), dtype=dtype).element_size()
+    ks = (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 24, 33, 100, 256)
+    n = 0
+    for bn in range(step, 1025, step):
+        for bm in range(1, 4096 // bn + 1):
+            for k in ks:
+                if bm * k > 2048 or bn * k > 1024:
+                    break
+                for c0 in range(0, k, 16):
+                    cfg = spmm_tile.launch_config(
+                        dtype, bm, bn, spmm_tile.kernel_width(min(16,
+                                                                  k - c0)))
+                    assert cfg["threads"] <= spmm_tile.MAX_THREADS
+                    assert cfg["smem_bytes"] <= spmm_tile.MAX_SMEM
+                    per_pass = cfg["threads"] // cfg["groups_padded"]
+                    assert bm <= spmm_tile.MAX_ROWS * per_pass
+                n += 1
+    assert n > 10_000
+    assert [spmm_tile.kernel_width(k) for k in (1, 2, 3, 4, 5, 8, 9, 16,
+                                                 17)] == [1, 2, 4, 4, 8, 8,
+                                                          16, 16, 16]
+    with pytest.raises(ValueError, match="no kernel"):
+        spmm_tile.launch_config(dtype, 64, 64, 3)
+
+
+def test_spmm_launch_config_of_the_rmat_image():
+    """At the rmat image's 64×64 blocks: 128 threads of 8-column groups
+    and 4 rows, 4 stages; float32 and bf16 share the group width (one
+    summation order); at least 3 float32 CTAs (k ≤ 8) and 6 bf16 CTAs
+    (k = 4) fit an SM's 228 KB of shared memory, 1 KB of it reserved a
+    CTA."""
+    sm_bytes, reserved = 233472, 1024
+    for dtype, k, ctas in ((torch.float32, 4, 3), (torch.float32, 8, 3),
+                           (torch.bfloat16, 4, 6)):
+        cfg = spmm_tile.launch_config(dtype, 64, 64, k)
+        assert (cfg["threads"], cfg["group_width"], cfg["groups"],
+                cfg["stages"]) == (128, 8, 8, spmm_tile.STAGES)
+        assert ctas * (cfg["smem_bytes"] + reserved) <= sm_bytes
+    f32 = spmm_tile.launch_config(torch.float32, 64, 64, 4)
+    assert f32["block_bytes"] == 64 * 64 * 4
+    assert spmm_tile.launch_config(torch.float32, 12, 12,
+                                   4)["group_width"] == 4
+    assert spmm_tile.launch_config(torch.float32, 8, 8, 4)["threads"] == 32
+
+
 def test_coo_path_vs_reference(rng):
     n, nnz = 500, 3000
     rows = rng.integers(0, n, nnz).astype(np.int32)
