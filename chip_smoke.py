@@ -323,6 +323,25 @@ Training, after 31:
      algorithms: [train 4] against [train 2, restore, train 2], every
      leaf of (params, AdamWState) bit for bit.
 
+The curvature spectrum, after 32:
+ 33. curvature. qwen2-1.5b at its published widths cut to 2 layers, in
+     float32 (a Hessian in bf16 is noise), remat off, weights drawn on
+     the card from a seed, one batch of 2 x 128 tokens:
+     `examples.curvature_spectrum.hessian_operator` (`HvpOperator`, about
+     3.3e8 coordinates, n_logical printed) and `eigsh(op, 4,
+     block_size=2, tol=1e-3, which="LA")` on the card, the subspace on
+     the RAM tier as in every solve (the newest block on the card). One
+     HVP column against the same column on the host CPU (plain versions)
+     within CURV_HVP_TOL of max |Hv|; symmetry |uᵀHv − vᵀHu| against
+     ‖u‖‖Hv‖;
+     the solve converged, every Ritz pair's true residual within
+     CURV_RESID_TOL; the float32 flash forward and backward, gram and
+     tsgemm launched in the solve (counters zeroed just before, read
+     just after), the plain second-order route's calls counted
+     (`flashattn.GRAD2_CALLS`). Logged with the card line: ms per HVP
+     column, the solve's wall time and restarts, its host spans (matmat,
+     store.get, store.demote) and host-tier bytes, peak device memory.
+
 Then one JSON line of kernels (the four PR-15 rows, the nine width rows
 of 14, flash attention at yi-9b's shape and at hubert's head dim 80, the
 flash backward at qwen2's training layer (its launches 32c's) and in
@@ -521,6 +540,19 @@ TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP, TRAIN_SEED = 6, 3e-4, 2, 0
 TRAIN_LOSS_TOL = 2.0 ** -8
 # 32d: [train 4] against [train 2, restore, train 2] at RESUME_LAYERS
 RESUME_LAYERS = 2
+# 33: the curvature spectrum of qwen2-1.5b at its published widths, cut
+# to CURV_LAYERS layers, float32, remat off, on one batch of CURV_BATCH
+# tokens: eigsh(nev 4, block 2, tol 1e-3, which "LA") over HvpOperator.
+# One Hessian-vector column on the card against the CPU's (plain
+# versions), max |Δ| ≤ CURV_HVP_TOL · max |Hv| (both float32, sums in
+# another order); |uᵀHv − vᵀHu| ≤ CURV_SYM_TOL · ‖u‖‖Hv‖; the Ritz pairs'
+# true residuals ‖Hx − θx‖ / max(1, |θ|) ≤ CURV_RESID_TOL (10× the
+# solve's tol, as phase 5's RESID_TOL is 10× its tol). CURV_RESTARTS is
+# eigsh's default: the example's 40 left 2 to spare on the card (38)
+CURV_LAYERS, CURV_BATCH, CURV_SEED = 2, (2, 128), 0
+CURV_NEV, CURV_BLOCK, CURV_TOL, CURV_RESTARTS = 4, 2, 1e-3, 60
+CURV_HVP_TOL, CURV_SYM_TOL, CURV_RESID_TOL = 1e-4, 1e-4, 1e-2
+CURV_REPS = 3
 
 
 def fail(msg: str) -> None:
@@ -634,36 +666,54 @@ def make_graph(n_log2: int, nnz_log2: int):
     return tm, (r, c, v)
 
 
-def kernels_per_call(torch, fn, calls: int = 4, windows: int = 3) -> float:
+def kernels_per_call(torch, fn, calls: int = 4, windows: int = 3,
+                     launched=None) -> float:
     """Device kernels that one call of fn launches, counted by the
-    profiler over `calls` calls (copies and fills excluded). A fill opens
-    and closes the window: after earlier profiler sessions the first
-    kernel of a window can go unrecorded (seen in this script's runs,
-    where the same calls counted alone give one kernel per call), and
-    the fill takes that place. A window can also come back with none of
+    profiler over `calls` calls (copies and fills excluded). Fills open
+    and close the window: after earlier profiler sessions the first
+    kernels of a window can go unrecorded (seen in this script's runs,
+    where the same calls counted alone give one kernel per call), so
+    three fills and a synchronize come before the calls and take that
+    place. A window can also come back with none of
     fn's kernels (seen once in this script's runs, for calls that launched:
-    the wrappers count every launch and their results are checked), so
-    such a window is logged and profiled again, up to `windows` times; a
-    count other than 0 is returned as it is."""
+    the wrappers count every launch and their results are checked), or
+    with a count that is not a whole number a call (a record lost inside
+    the window: seen in this script's runs, 7 kernels for 4 calls of a
+    2-kernel SpMM), so such a window is logged and profiled again, up to
+    `windows` times; the last window's count is returned as it is.
+    `launched`, where given, reads the wrapper's own count of the device
+    kernels it launched; the last window's profiler count must equal
+    that count's growth over the window's calls, so a retry cannot hide a
+    launch that did not happen."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     word = torch.empty(1, device="cuda")
     for window in range(1, windows + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            word.fill_(1.0)
+            for _ in range(3):
+                word.fill_(1.0)
+            torch.cuda.synchronize()
+            before = launched() if launched else None
             for _ in range(calls):
                 fn()
+            by_wrapper = launched() - before if launched else None
             word.fill_(1.0)
             torch.cuda.synchronize()
-        n = sum(evt.count for evt in prof.key_averages()
-                if "CUDA" in str(getattr(evt, "device_type", ""))
-                and not evt.key.startswith(("Memcpy", "Memset"))
-                and "FillFunctor" not in evt.key)
-        if n:
+        counts = {evt.key[:60]: evt.count for evt in prof.key_averages()
+                  if "CUDA" in str(getattr(evt, "device_type", ""))
+                  and not evt.key.startswith(("Memcpy", "Memset"))
+                  and "FillFunctor" not in evt.key}
+        n = sum(counts.values())
+        if n and n % calls == 0:
             break
         log(f"kernels_per_call: profile window {window} of {windows} "
-            f"recorded none of the {calls} calls' kernels")
+            f"recorded {n} kernels for the {calls} calls (the wrapper "
+            f"counted {by_wrapper}): {counts}")
+    if launched and n != by_wrapper:
+        fail(f"kernels_per_call: the profiler recorded {n} device kernels "
+             f"for {calls} calls, the wrapper counted {by_wrapper}: "
+             f"{counts}")
     return n / calls
 
 
@@ -703,7 +753,8 @@ def spmm_phase(torch, op, timer, x, width_row: bool = False):
     # device kernels a call: the ring kernel, and the combine kernel when
     # the plan splits rows; and the ring's launch as the card reports it
     per_call = kernels_per_call(torch, lambda: ops.spmm_blocks(
-        blocks, cols, ptr, x, plan=plan))
+        blocks, cols, ptr, x, plan=plan),
+        launched=lambda: spmm_tile.DEVICE_KERNELS)
     want_per_call = 1 + (plan.splits.shape[0] > 0)
     ring = spmm_tile.occupancy(blocks.dtype, bm, bn,
                                spmm_tile.kernel_width(k), op.device)
@@ -4225,6 +4276,200 @@ def training_phase(torch, dev, timer, card_line: str) -> list:
     return rows
 
 
+def curvature_kernel_check(torch, v, hv, by_width: dict):
+    """gram and tsgemm on phase 33's own blocks, at every width the solve
+    launched each at, against float64 products summed in row chunks (the
+    rows are ~3e8): A's columns from the Ritz vectors V, B's (gram) and
+    C0's (tsgemm) from their HVP block HV = H·V, each repeated to the
+    width; tsgemm computes the project-out C0 − A·(AᵀC0). Each within
+    KERNEL_TOL of Σ|terms| per element, as the serve phase holds them;
+    the plain versions' errors are returned beside. After the counters
+    were read: these launches do not count."""
+    from repro_torch.kernels import ops
+    nev = v.shape[1]
+    rows = 1 << 24
+
+    def cols(t, w):
+        return t[:, [i % nev for i in range(w)]]
+
+    def chunks(*ts):
+        for r0 in range(0, ts[0].shape[0], rows):
+            yield (t[r0:r0 + rows].double() for t in ts)
+
+    errs, plain_errs = {}, {}
+    for key in by_width["gram"]:
+        m, b = map(int, key.split("x"))
+        a, bb = cols(v, m), cols(hv, b)
+        exact = torch.zeros((m, b), dtype=torch.float64, device=v.device)
+        terms = torch.zeros_like(exact)
+        for ac, bc in chunks(a, bb):
+            exact += ac.T @ bc
+            terms += ac.abs().T @ bc.abs()
+        errs[f"gram {key}"] = rel_err(ops.gram(a, bb), exact, terms)
+        plain_errs[f"gram {key}"] = rel_err(ops.gram(a, bb, impl="ref"),
+                                            exact, terms)
+        del a, bb
+    for key in by_width["tsgemm"]:
+        m, b = map(int, key.split("x"))
+        a, c0 = cols(v, m), cols(hv, b)
+        small = ops.gram(a, c0, impl="ref")
+        s64 = small.double()
+        for name, out, impl in (("kernel", errs, "auto"),
+                                ("plain", plain_errs, "ref")):
+            got = ops.tsgemm(a, small, alpha=-1.0, beta=1.0, c0=c0,
+                             impl=impl)
+            out[f"tsgemm {key}"] = max(
+                rel_err(gc, cc - ac @ s64, ac.abs() @ s64.abs() + cc.abs())
+                for ac, cc, gc in chunks(a, c0, got))
+            del got
+        del a, c0
+    return errs, plain_errs
+
+
+def curvature_phase(torch, dev, card_line: str) -> None:
+    """Phase 33: the Hessian spectrum of qwen2-1.5b's loss (published
+    widths, CURV_LAYERS layers, float32, remat off) through
+    `examples.curvature_spectrum.hessian_operator` and `eigsh`, on the
+    card. Checks: one HVP column against the CPU's, symmetry, the Ritz
+    pairs' true residuals, and the launches of the float32 flash forward
+    and backward, gram and tsgemm in the solve (counters zeroed just
+    before it and read just after), with the plain second-order calls
+    counted."""
+    from repro_torch import configs
+    from repro_torch.core import eigsh, true_residuals
+    from repro_torch.examples.curvature_spectrum import hessian_operator
+    from repro_torch.kernels import flashattn, gram, tsgemm
+    from repro_torch.models import transformer as tf
+    from repro_torch.obs import trace
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    full = configs.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=CURV_LAYERS,
+                              param_dtype="float32", remat=False)
+    log(f"curvature: {TRAIN_ARCH} at published widths: d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+        f"head dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+        f"embeddings {cfg.tie_embeddings}")
+    log(f"curvature: reduction: depth cut to {CURV_LAYERS} layers (published "
+        f"{full.n_layers})")
+    log(f"curvature: reduction: float32 parameters (published "
+        f"{full.param_dtype}; a Hessian in bf16 is noise)")
+    log(f"curvature: reduction: remat off (published remat {full.remat})")
+    params = tf.init_model(CURV_SEED, cfg, device=dev)
+    on_cpu = adamw.tree_map(lambda t: t.cpu(), params)
+    op = hessian_operator(cfg, device=dev, params=params,
+                          batch_shape=CURV_BATCH)
+    del params
+    log(f"curvature: n_logical {op.n_logical} coordinates (n {op.n}), "
+        f"{op.n * 4 / 1e9:.3f} GB per float32 vector; batch "
+        f"{CURV_BATCH[0]} x {CURV_BATCH[1]} tokens, seed {CURV_SEED}")
+
+    # one block of two columns: the first against the CPU's, symmetry
+    gen = torch.Generator(device=dev).manual_seed(CURV_SEED + 1)
+    x = torch.randn((op.n, 2), generator=gen, device=dev)
+    x[op.n_logical:] = 0
+    hx = op.matmat(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = hessian_operator(cfg, device="cpu", params=on_cpu,
+                            batch_shape=CURV_BATCH).matmat(x[:, :1].cpu())
+    t_cpu = time.perf_counter() - t0
+    del on_cpu
+    scale = float(want.abs().max())
+    hvp_err = float((hx[:, :1].cpu() - want).abs().max()) / scale
+    u, v, hu, hv = x[:, 0].double(), x[:, 1].double(), hx[:, 0].double(), \
+        hx[:, 1].double()
+    sym = float(abs(u @ hv - v @ hu) / (u.norm() * hv.norm()))
+    del u, v, hu, hv, want
+    log(f"curvature: one HVP column card vs CPU: max |Δ| / max |Hv| "
+        f"{hvp_err:.3e} (tol {CURV_HVP_TOL:g}; max |Hv| {scale:.4e}; CPU "
+        f"side {t_cpu:.1f} s) | symmetry |uᵀHv − vᵀHu| / (‖u‖‖Hv‖) "
+        f"{sym:.3e} (tol {CURV_SYM_TOL:g})")
+    if not (hvp_err <= CURV_HVP_TOL and sym <= CURV_SYM_TOL):
+        fail("curvature: the card's Hessian-vector product disagrees with "
+             "the CPU's, or is not symmetric")
+    times = []
+    for _ in range(CURV_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        op.matmat(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del x, hx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the solve, counted
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    flashattn.GRAD2_CALLS = 0
+    t0 = time.perf_counter()
+    with trace.tracing(trace.Tracer()) as tracer:
+        res = eigsh(op, CURV_NEV, block_size=CURV_BLOCK, tol=CURV_TOL,
+                    max_restarts=CURV_RESTARTS, which="LA")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"flash_attention_f32": flashattn.LAUNCHES_BY_D.get(cfg.hd, 0),
+              "flash_attention_bwd_f32":
+                  flashattn.BWD_LAUNCHES_BY_D.get(cfg.hd, 0),
+              "gram": gram.LAUNCHES, "tsgemm": tsgemm.LAUNCHES,
+              "plain second-order calls": flashattn.GRAD2_CALLS}
+    by_width = launches_by_width()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    resid = true_residuals(op, res.eigenvectors, res.eigenvalues)
+    log(f"curvature: eigsh nev {CURV_NEV}, block {CURV_BLOCK}, tol "
+        f"{CURV_TOL:g}, which LA: converged {res.converged} in "
+        f"{res.n_restarts} restarts, {res.n_ops} HVP blocks, subspace "
+        f"m {res.m_subspace}, wall {wall:.3f} s | top eigenvalues "
+        f"{np.array2string(np.sort(res.eigenvalues)[::-1], precision=5)}"
+        f" | true residuals {np.array2string(resid, precision=3)} (tol "
+        f"{CURV_RESID_TOL:g})")
+    io, rates = res.io_stats, span_rates(tracer)
+    matmat_s = sum(r["dur"] for r in tracer.records() if r["type"] == "span"
+                   and r["name"] == "operator.matmat") / 1e6
+    log(f"curvature: where the solve's {wall:.3f} s went (host spans): "
+        f"operator.matmat {matmat_s:.3f} s; the subspace on the host tier "
+        f"(RAM, pinned; every block but the newest): "
+        f"{io['host_bytes_read'] / 1e9:.1f} GB read, "
+        f"{io['host_bytes_written'] / 1e9:.1f} GB written, "
+        f"{io['passes']} passes; store.get "
+        f"{rates['store.get']['GB']:.1f} GB in {rates['store.get']['s']:.3f}"
+        f" s, store.demote {rates['store.demote']['GB']:.1f} GB in "
+        f"{rates['store.demote']['s']:.3f} s")
+    log(f"curvature: launches in the solve: {counts} | "
+        f"{statistics.median(times) / 2 * 1e3:.3f} ms per HVP column "
+        f"(median of {CURV_REPS} blocks of 2: one forward and one "
+        f"backward with a graph, then a backward per column) | peak "
+        f"device memory {peak:.2f} GB in the solve | {card_line}")
+    if not (res.converged and np.isfinite(res.eigenvalues).all()
+            and (resid <= CURV_RESID_TOL).all()):
+        fail("curvature: the spectrum did not converge, or a Ritz pair's "
+             "true residual is above its tolerance")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"curvature: {name} ran no time in the solve")
+    t0 = time.perf_counter()
+    v = torch.as_tensor(res.eigenvectors, dtype=torch.float32, device=dev)
+    hv = op.matmat(v)
+    errs, plain_errs = curvature_kernel_check(torch, v, hv, by_width)
+    del v, hv
+    log(f"curvature: gram and tsgemm at the solve's widths "
+        f"{json.dumps({k: by_width[k] for k in ('gram', 'tsgemm')})}, "
+        f"on the Ritz vectors and their HVP block ({op.n} rows), error / "
+        f"Σ|terms| against float64: kernels {json.dumps(errs)} (tol "
+        f"{KERNEL_TOL:g}), plain versions {json.dumps(plain_errs)} | "
+        f"{time.perf_counter() - t0:.1f} s")
+    bad = {k: e for k, e in errs.items() if not e <= KERNEL_TOL}
+    if bad or not (by_width["gram"] and by_width["tsgemm"]):
+        fail(f"curvature: gram or tsgemm off the float64 product at the "
+             f"solve's shapes (tol {KERNEL_TOL:g} of Σ|terms|), or not "
+             f"launched: {bad}")
+    del op, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"curvature: phase 33 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def small_reference_check(torch, dev) -> None:
     from repro_torch.core import GraphOperator, TieredStore, solve
     from repro_torch.graphs import pack_tiles, rmat_spectral, to_dense
@@ -4359,6 +4604,9 @@ def main() -> None:
         if r["launches"] <= 0:
             fail(f"{r['name']} was not launched by phase 32's runs")
     rows += bwd_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    curvature_phase(torch, dev, card_line)                    # phase 33
     for r in rows:      # the launches at each row's width in phases 29, 30a
         r["serve_launches"] = serve_launches(
             r["name"], serve_counts[0],

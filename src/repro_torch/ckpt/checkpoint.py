@@ -26,7 +26,7 @@ arrays or Python scalars; `restore` returns torch tensors.
 
 `restore(shardings=...)` is the reference's elastic reshard onto a
 training mesh; it raises until the mesh side of training is ported
-(ROADMAP.md queue 1 item 7).
+(ROADMAP.md queue 1 item 7.4).
 """
 from __future__ import annotations
 
@@ -37,10 +37,13 @@ import shutil
 import threading
 import time
 import urllib.parse
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.tree import flatten_with_paths as _flatten_with_paths
+from repro_torch.tree import unflatten as _unflatten
 
 MANIFEST = "manifest.json"
 
@@ -60,53 +63,6 @@ def _sha256_file(path: str) -> str:
 
 
 # ----------------------------------------------------------------- trees
-def _is_namedtuple(node: Any) -> bool:
-    return isinstance(node, tuple) and hasattr(type(node), "_fields")
-
-
-def _flatten_with_paths(tree: Any) -> Tuple[List[str], List[Any], Any]:
-    """(names, leaves, treedef) in JAX's `tree_flatten_with_path` order.
-    `treedef` is the tree itself, the template `_unflatten` refills."""
-    names: List[str] = []
-    leaves: List[Any] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (str(k),))
-        elif _is_namedtuple(node):
-            for f, child in zip(node._fields, node):
-                walk(child, path + ("." + f,))
-        elif isinstance(node, (list, tuple)):
-            for i, child in enumerate(node):
-                walk(child, path + (str(i),))
-        else:
-            names.append("/".join(path))
-            leaves.append(node)
-
-    walk(tree, ())
-    return names, leaves, tree
-
-
-def _unflatten(treedef: Any, leaves: List[Any]) -> Any:
-    it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if _is_namedtuple(node):
-            return type(node)(*(build(c) for c in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        return next(it)
-
-    return build(treedef)
-
-
 def _map_leaves(fn: Callable[[Any], Any], tree: Any) -> Any:
     _, leaves, treedef = _flatten_with_paths(tree)
     return _unflatten(treedef, [fn(leaf) for leaf in leaves])
@@ -216,7 +172,7 @@ def restore(root: str, step: int, like: Any, *, shardings: Any = None
     if shardings is not None:
         raise NotImplementedError(
             "restore(shardings=...) is the elastic reshard of training, "
-            "not ported yet: ROADMAP.md queue 1 item 7")
+            "not ported yet: ROADMAP.md queue 1 item 7.4")
     path = os.path.join(root, f"step_{step:010d}")
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)

@@ -7,7 +7,8 @@ from repro_torch.core.stream import SubspacePass
 from repro_torch.core.ortho import (cholqr, svqb, svqb_transform, bcgs2,
                                     ortho_error)
 from repro_torch.core.operator import (GraphOperator, NormalOperator,
-                                       DenseOperator, LinearOperator,
+                                       DenseOperator, HvpOperator,
+                                       LinearOperator,
                                        ShiftInvertOperator,
                                        ChebyshevFilterOperator,
                                        estimate_spectral_range, capabilities,
@@ -25,7 +26,8 @@ __all__ = [
     "TieredStore", "IOStats", "DEVICE", "HOST", "ReadOnlyError",
     "MultiVector", "SubspacePass",
     "cholqr", "svqb", "svqb_transform", "bcgs2", "ortho_error",
-    "GraphOperator", "NormalOperator", "DenseOperator", "LinearOperator",
+    "GraphOperator", "NormalOperator", "DenseOperator", "HvpOperator",
+    "LinearOperator",
     "ShiftInvertOperator", "ChebyshevFilterOperator",
     "estimate_spectral_range", "capabilities",
     "CAP_FUSED_EXPAND", "CAP_SPECTRAL_TRANSFORM",

@@ -11,7 +11,8 @@ solver of the family inherits through the same `matmat` seam:
                           measured spectral interval
                           (`estimate_spectral_range`).
 
-`HvpOperator` comes with the LM side (ROADMAP queue 1 item 7).
+`HvpOperator` is the Hessian of a loss over a model's parameters (the
+curvature spectrum, `examples/curvature_spectrum.py`).
 
 Operators declare what they can do through `capabilities()`; solvers
 dispatch on the declared set instead of sniffing attributes. Every
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import List, Protocol, Tuple
+from typing import Callable, List, Protocol, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import spmm_tile
 from repro_torch.kernels.spmm_ref import coo_spmm_ref
 from repro_torch.obs import trace
+from repro_torch.tree import tree_leaves, tree_map
 
 
 class LinearOperator(Protocol):
@@ -313,6 +315,66 @@ class NormalOperator:
         with trace.span("operator.matmat", op="NormalOperator",
                         k=int(x.shape[1]), n=self.n):
             return self.at.matmat(self.a.matmat(x))
+
+
+class HvpOperator:
+    """Matrix-free Hessian-vector product of `loss_fn(params)`.
+
+    The parameters are flattened into one vector space in JAX's leaf
+    order (`tree.tree_leaves`: dict keys sorted), so a vector has
+    the reference's coordinates: n_logical of them, padded to n, a
+    multiple of pad_to (the padding rows of x are ignored and come back
+    zero). Each matmat runs the loss forward once and takes its gradient
+    with a graph (`create_graph=True`); each column of the block is then
+    one more backward through that gradient (reverse over reverse: the
+    reference's `jax.jvp` of `jax.grad` gives the same Hessian, with
+    another float32 rounding). Attention's second-order terms take the
+    plain route (`kernels.ops._FlashAttentionGrad`); every first-order
+    product launches the kernels on the card.
+
+    `loss_fn` takes the parameter tree and returns a scalar; the tree's
+    tensors live on `device` (the card unless `device="cpu"`)."""
+
+    def __init__(self, loss_fn: Callable, params, *, pad_to: int = 8,
+                 device=None):
+        self.device = resolve_device(device)
+        self.loss_fn = loss_fn
+        self._params = tree_map(
+            lambda t: t.detach().to(self.device).requires_grad_(), params)
+        self._leaves = tree_leaves(self._params)
+        self._offsets = np.cumsum([0] + [t.numel() for t in self._leaves])
+        self.n_logical = int(self._offsets[-1])
+        self.n = -(-self.n_logical // pad_to) * pad_to
+
+    def capabilities(self) -> frozenset:
+        return frozenset()
+
+    def matmat(self, x: torch.Tensor) -> torch.Tensor:
+        with trace.span("operator.matmat", op="HvpOperator",
+                        k=int(x.shape[1]), n=self.n):
+            x = x.to(self.device, torch.float32)
+            hv = torch.zeros((self.n, x.shape[1]), dtype=torch.float32,
+                             device=self.device)
+            with torch.enable_grad():
+                loss = self.loss_fn(self._params)
+                grads = torch.autograd.grad(loss, self._leaves,
+                                            create_graph=True)
+                # a gradient without a graph is constant: its rows of Hv
+                # stay zero
+                live = [(i, g) for i, g in enumerate(grads)
+                        if g.requires_grad]
+                off = self._offsets
+                for j in range(x.shape[1]):
+                    vs = [x[off[i]:off[i + 1], j]
+                          .reshape(self._leaves[i].shape)
+                          .to(self._leaves[i].dtype) for i, _ in live]
+                    cols = torch.autograd.grad(
+                        [g for _, g in live], self._leaves, vs,
+                        retain_graph=True, allow_unused=True)
+                    for i, c in enumerate(cols):
+                        if c is not None:
+                            hv[off[i]:off[i + 1], j] = c.reshape(-1)
+            return hv
 
 
 # ---------------------------------------------------------------- transforms

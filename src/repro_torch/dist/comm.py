@@ -352,9 +352,38 @@ def _rank_main(rank: int, shape, backend: str, device: str,
         # that finishes first would otherwise break a peer's connection)
         dist.barrier()
     except BaseException:
-        results.put((rank, "error", traceback.format_exc()))
+        # when it failed, on the host's monotonic clock (one for all of its
+        # processes): `spawn` reports the failure that came first
+        results.put((rank, "error", (time.monotonic(),
+                                     traceback.format_exc())))
     finally:
         close_world()
+
+
+def _first_failure(rank: int, payload, results, procs, done) -> str:
+    """The report of the rank that failed first. One rank's failure makes
+    its peers fail (a rank that raises closes the group under a peer in a
+    collective), and their reports may reach the queue in either order;
+    so the reports that arrive within 5 s, or until every other rank has
+    reported or exited, are ordered by the time each rank failed."""
+    failures = {rank: payload}
+    end = time.monotonic() + 5.0
+    while True:
+        try:
+            r, status, report = results.get(timeout=0.2)
+        except queue.Empty:
+            waiting = [i for i, proc in enumerate(procs)
+                       if i not in failures and i not in done
+                       and proc.exitcode is None]
+            if not waiting or time.monotonic() >= end:
+                break
+            continue
+        if status == "error":
+            failures[r] = report
+    first = min(failures, key=lambda r: (failures[r][0], r))
+    later = sorted(set(failures) - {first})
+    return (f"spawn: rank {first} failed:\n{failures[first][1]}"
+            + (f"\nthen ranks {later} failed" if later else ""))
 
 
 def spawn(fn: Callable, shape: Sequence[int], *, backend: str, device=None,
@@ -404,7 +433,8 @@ def spawn(fn: Callable, shape: Sequence[int], *, backend: str, device=None,
                                        "without a result")
                 continue
             if status == "error":
-                raise RuntimeError(f"spawn: rank {rank} failed:\n{payload}")
+                raise RuntimeError(_first_failure(rank, payload, results,
+                                                  procs, out))
             out[rank] = payload
         ok = True
     finally:

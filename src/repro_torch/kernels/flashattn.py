@@ -47,6 +47,9 @@ LAUNCHES = 0   # kernel launches by this process (chip_smoke reads it)
 LAUNCHES_BY_D: dict[int, int] = {}   # those of them by head dim
 BWD_LAUNCHES = 0   # backward calls that launched (2 to 4 kernels each)
 BWD_LAUNCHES_BY_D: dict[int, int] = {}   # those of them by head dim
+# second derivatives through attention: calls of the plain route that
+# takes them (`ops._FlashAttentionGrad.backward`, no kernel on purpose)
+GRAD2_CALLS = 0
 
 HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's head dims
 BWD_TILE = 64   # query rows per tile of the backward (its LSE/D pad)

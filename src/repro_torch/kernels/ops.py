@@ -130,7 +130,14 @@ class _FlashAttention(torch.autograd.Function):
     """Flash attention with its backward: the forward keeps q, k, v, the
     output and its row LSE; the backward launches the hand-written
     backward kernels where the forward launched the kernel, and the plain
-    backward on the CPU, so both paths run the same wiring."""
+    backward on the CPU, so both paths run the same wiring.
+
+    The backward is itself differentiable (a Hessian-vector product
+    differentiates it): it applies `_FlashAttentionGrad`, whose forward is
+    that first-order backward and whose backward takes the second-order
+    terms. The LSE is computed without a graph and saved beside the
+    inputs, so no derivative may be taken through it: the second-order
+    terms come from the inputs q, k, v and dO alone."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, use_kernel: bool):
@@ -148,10 +155,66 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if do.stride(-1) != 1:     # e.g. the expanded ones of a sum
             do = do.contiguous()
-        bwd = (_flash_kernel.flash_attention_bwd if ctx.use_kernel
-               else flash_attention_bwd_ref)
-        dq, dk, dv = bwd(q, k, v, out, lse, do, causal=ctx.causal)
+        dq, dk, dv = _FlashAttentionGrad.apply(
+            q, k, v, out.detach(), lse, do, ctx.causal, ctx.use_kernel)
         return dq, dk, dv, None, None
+
+
+class _FlashAttentionGrad(torch.autograd.Function):
+    """The first-order backward of flash attention as a function of
+    (q, k, v, dO), so that a double backward sees how dq, dk, dv depend
+    on each of them. out and LSE come in as constants (detached): the
+    second-order terms recompute them from q, k, v.
+
+    forward: the hand-written backward kernels on a CUDA tensor, the
+    plain backward on the CPU (the first-order product, as before).
+    backward: the second-order terms, by autograd through the plain
+    attention `attention_ref`, on every device. This route is plain on
+    purpose: the reference has no kernel for it either (JAX
+    differentiates its plain attention to any order), so it counts
+    calls, not launches (`flashattn.GRAD2_CALLS`). A third derivative
+    raises instead of returning values (`_NoThirdDerivative`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, out, lse, do, causal: bool, use_kernel: bool):
+        bwd = (_flash_kernel.flash_attention_bwd if use_kernel
+               else flash_attention_bwd_ref)
+        ctx.save_for_backward(q, k, v, do)
+        ctx.causal = causal
+        return bwd(q, k, v, out, lse, do, causal=causal)
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        saved = ctx.saved_tensors
+        _flash_kernel.GRAD2_CALLS += 1
+        with torch.enable_grad():
+            q, k, v, do = (t.detach().requires_grad_() for t in saved)
+            out = attention_ref(q, k, v, causal=ctx.causal)
+            first = torch.autograd.grad(out, (q, k, v), do,
+                                        create_graph=True)
+            terms = torch.autograd.grad(first, (q, k, v, do), (gq, gk, gv))
+        if torch.is_grad_enabled():       # a graph is being built on them
+            terms = _NoThirdDerivative.apply(*terms, *saved, gq, gk, gv)
+        hq, hk, hv, hdo = terms
+        return hq, hk, hv, None, None, hdo, None, None
+
+
+class _NoThirdDerivative(torch.autograd.Function):
+    """Passes the four second-order terms through (the first four
+    arguments; the others are what they depend on) and raises if they are
+    differentiated. `torch.autograd.function.once_differentiable` does
+    not do: it raises only when the incoming gradients need a gradient,
+    and otherwise returns terms that a third derivative treats as
+    constants, i.e. wrong values."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        return tuple(t.clone() for t in args[:4])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash attention is differentiable twice; a "
+                           "third derivative through it is not supported")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -164,8 +227,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Differentiable: when grad is enabled and an input needs a gradient,
     the call goes through `_FlashAttention` (the forward also stores the
-    row LSE, the backward is a kernel too on a CUDA tensor). Otherwise
-    (serving) it is the forward alone, as it always was."""
+    row LSE, the backward is a kernel too on a CUDA tensor), and a
+    second derivative takes its terms through the plain attention
+    (`_FlashAttentionGrad`). Otherwise (serving) it is the forward alone,
+    as it always was."""
     use_kernel = _use_kernel(impl, q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -34,6 +34,9 @@ from repro_torch.kernels._checks import (F32_BF16, require_cuda,
 LAUNCHES = 0        # spmm_blocksparse calls that launched (chip_smoke reads it)
 LAUNCHES_BF16 = 0   # those of them over bf16 blocks
 LAUNCHES_BY_K: dict[int, int] = {}   # those of them by X's width k
+DEVICE_KERNELS = 0  # device kernels launched through `launch_with`: the
+                    # ring kernel and, where the plan splits rows, the
+                    # combine kernel, once per slab of X
 
 N_SMS = 132   # an H100 SXM's SMs: the default chunk of a plan on the CPU
 CHUNK_MIN, CHUNK_MAX = 16, 512
@@ -243,7 +246,9 @@ def launch_with(library, blocks: torch.Tensor, block_cols: torch.Tensor,
     """`spmm_blocksparse` through the kernel library that `library()`
     returns, once the inputs have passed their checks (`_build.lib` for
     the port's; `spmm_compare` passes another tree's build, whose C
-    interface is the same). It counts nothing in LAUNCHES."""
+    interface is the same). It counts nothing in LAUNCHES; its device
+    kernels count in DEVICE_KERNELS."""
+    global DEVICE_KERNELS
     _check_shapes(blocks, block_cols, row_ptr, x)
     nb, bm, bn = blocks.shape
     k = x.shape[1]
@@ -293,6 +298,8 @@ def launch_with(library, blocks: torch.Tensor, block_cols: torch.Tensor,
             plan.splits.shape[0], xs.data_ptr(), ys.data_ptr(),
             partials.data_ptr(), bm, bn, kw, device, stream)
         _build.check(err, "spmm_blocksparse")
+        DEVICE_KERNELS += ((plan.items.shape[0] > 0)
+                           + (plan.splits.shape[0] > 0))
         if ys is not y:
             y[:, c0:c0 + w] = ys[:, :w]
     return y

@@ -9,7 +9,7 @@ Trains on the CUDA card (the flash forward and backward kernels) unless
 Checkpoint/restart, preemption handling and the deterministic pipeline
 come from train.trainer; rerun with the same --ckpt-dir to resume. The
 reference's debug mesh has no counterpart: one process trains on one
-device (sharded training is ROADMAP queue 1 item 7).
+device (sharded training is ROADMAP queue 1 item 7.4).
 """
 from __future__ import annotations
 

@@ -24,6 +24,13 @@ def dtype_of(cfg) -> torch.dtype:
     return _DTYPES[cfg.param_dtype]
 
 
+class ShapeOnly:
+    """Stands in for the generator on the meta device: `init_model(...,
+    device="meta")` gives every leaf its shape and type and no values
+    (a full-size model's sharding specs need no weights)."""
+    device = torch.device("meta")
+
+
 def _normal(gen: torch.Generator, shape: tuple, std: float, dtype,
             lead: tuple = ()) -> torch.Tensor:
     """N(0, std²) of shape lead + shape in `dtype`, drawn in float32 one
@@ -32,6 +39,8 @@ def _normal(gen: torch.Generator, shape: tuple, std: float, dtype,
     expert by expert)."""
     out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
                       device=gen.device)
+    if out.is_meta:
+        return out
     tile = tuple(shape[-2:])
     flat = out.view(-1, *tile)
     for i in range(flat.shape[0]):

@@ -51,7 +51,7 @@ from repro_torch.models.modules import (apply_linear, apply_mlp, apply_norm,
                                         cross_entropy, dtype_of,
                                         embed_tokens, init_embedding,
                                         init_linear, init_mlp, init_norm,
-                                        lm_logits)
+                                        lm_logits, ShapeOnly)
 
 def _on(x, device, dtype=None) -> torch.Tensor:
     """An input on the device the call runs on (`device`, else the
@@ -145,8 +145,11 @@ def init_model(seed: int, cfg: ArchConfig, *, device=None):
     SSM's and RG-LRU's constants as the reference sets them, all in
     cfg.param_dtype but the float32 leaves the reference keeps float32
     (`a_log`, `dt_bias`, `d_skip`, `lam`); drawn on the device from a
-    generator seeded with `seed`."""
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    generator seeded with `seed`. On `device="meta"` the leaves have
+    shapes and types only."""
+    dev = resolve_device(device)
+    gen = (ShapeOnly() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     params: dict[str, Any] = {}
     if cfg.frontend == "audio":
         # frame embeddings come in directly; a linear stands in for the

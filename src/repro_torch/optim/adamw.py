@@ -2,65 +2,33 @@
 
 Trees of parameters, gradients and moments are nested dicts and lists of
 tensors, as the model keeps them; leaves are visited in JAX's order
-(dict keys sorted), so a sum over leaves runs in the reference's order.
+(dict keys sorted: `repro_torch.tree`), so a sum over leaves runs in the
+reference's order.
 `update` and `global_norm_clip` follow the reference's order of
 operations in float32: the moments are float32 whatever the parameter
 type, and a new parameter is rounded once to its type. They return new
 trees (the inputs are not changed): the trainer drops the old ones.
 
-The reference's `zero1_sharding` and `shard_opt_spec` spread the moments
-over a mesh's data axis; they wait for the port of `models/sharding.py`
-(ROADMAP.md queue 1 item 7).
+`shard_opt_spec` spreads a moment over a mesh's data axis (ZeRO-1) on
+top of its parameter's spec, and `zero1_sharding` is the reference's
+conservative default; both work on the spec tuples of
+`models.sharding`. Applying them to tensors is sharded training
+(ROADMAP.md queue 1 item 7.4).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+
+# the tree helpers, re-exported: callers write adamw.tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten  # noqa: F401
 
 
 class AdamWState(NamedTuple):
     step: torch.Tensor      # 0-d int32, the number of updates taken
     m: Any
     v: Any
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a tree of dicts, lists and tuples, dict keys sorted."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for c in tree for x in tree_leaves(c)]
-    return [tree]
-
-
-def _is_namedtuple(node) -> bool:
-    # the rule of ckpt/checkpoint.py: a NamedTuple takes its fields as
-    # arguments, a plain tuple or list one iterable
-    return isinstance(node, tuple) and hasattr(type(node), "_fields")
-
-
-def tree_map(fn: Callable, tree, *rest):
-    """fn over the leaves of `tree` and the matching leaves of `rest`
-    (same structure), called in `tree_leaves` order, rebuilt in `tree`'s
-    structure (dicts keep their key order; a NamedTuple such as
-    `AdamWState` stays one)."""
-    if isinstance(tree, dict):
-        done = {k: tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in sorted(tree)}
-        return {k: done[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
-        children = [tree_map(fn, c, *(r[i] for r in rest))
-                    for i, c in enumerate(tree)]
-        return (type(tree)(*children) if _is_namedtuple(tree)
-                else type(tree)(children))
-    return fn(tree, *rest)
-
-
-def tree_unflatten(like, leaves: list):
-    """`like`'s structure holding `leaves` (in `tree_leaves` order)."""
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
 
 
 def init(params) -> AdamWState:
@@ -95,6 +63,42 @@ def update(state: AdamWState, grads, params, *, lr, b1: float = 0.9,
     new_p, new_m, new_v = (tree_unflatten(params, [o[i] for o in outs])
                            for i in range(3))
     return new_p, AdamWState(step=step, m=new_m, v=new_v)
+
+
+def zero1_sharding(param_spec: tuple, mesh) -> tuple:
+    """The reference's default for an optimizer-state tensor: its
+    parameter's spec unchanged (the trainer asks `shard_opt_spec` for
+    the real spreading)."""
+    del mesh
+    return tuple(param_spec or ())
+
+
+def shard_opt_spec(param_spec: tuple, shape, mesh,
+                   data_axis: str = "data") -> tuple:
+    """ZeRO-1: add the data axis to the first unsharded, divisible dim
+    (or stack it onto a model-sharded dim). No-op if the param's spec
+    already consumes the data axis (FSDP archs)."""
+    spec = list(param_spec) + [None] * (len(shape) - len(param_spec))
+
+    def axes_of(s):
+        if s is None:
+            return ()
+        return s if isinstance(s, tuple) else (s,)
+    used = {a for s in spec for a in axes_of(s)}
+    if data_axis in used:
+        return tuple(spec)
+    dsize = mesh.shape[data_axis]
+    for i, (s, dim) in enumerate(zip(spec, shape)):
+        if s is None and dim % dsize == 0 and dim >= dsize:
+            spec[i] = data_axis
+            return tuple(spec)
+    for i, (s, dim) in enumerate(zip(spec, shape)):
+        if s is not None and not isinstance(s, tuple):
+            total = dsize * mesh.shape[s]
+            if dim % total == 0:
+                spec[i] = (s, data_axis)
+                return tuple(spec)
+    return tuple(spec)
 
 
 def global_norm_clip(grads, max_norm: float):

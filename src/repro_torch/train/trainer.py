@@ -15,8 +15,9 @@ Fault-tolerance wiring, as in the reference:
 The loop runs on `device` (the card when None; the CPU tests pass
 "cpu"). A step's time is taken after `float(loss)`, which waits for the
 device. The final checkpoint's write is logged with its path, bytes and
-seconds. `mesh` (the reference's sharded training) raises until
-`models/sharding.py` is ported (ROADMAP.md queue 1 item 7).
+seconds. `mesh` (the reference's sharded training) raises: the specs
+are ported (`models/sharding.py`), applying them is ROADMAP.md queue 1
+item 7.4.
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ def train(cfg, tcfg: TrainConfig, data_cfg: DataConfig, *, mesh=None,
     if mesh is not None:
         raise NotImplementedError(
             "train(mesh=...) is sharded training, not ported yet: "
-            "ROADMAP.md queue 1 item 7")
+            "ROADMAP.md queue 1 item 7.4")
     dev = resolve_device(device)
     params, opt_state = S.init_all(tcfg.seed, cfg, device=dev)
     step_fn = S.build_train_step(cfg, num_microbatches=tcfg.num_microbatches,

@@ -383,3 +383,25 @@ def test_failed_or_hung_rank_fails_spawn(tmp_path, case, timeout, error):
         assert "CAUSE True" in out.stdout, out.stdout
         seconds = float(out.stdout.split("SECONDS")[1])
         assert seconds < 60, seconds
+
+
+def test_spawn_reports_the_rank_that_failed_first():
+    """A rank that raises closes its group under a peer, whose report of
+    the broken collective can reach the queue first: spawn reports the
+    rank whose failure came first by the ranks' own clock, with the later
+    ones named after it."""
+    import queue
+    import types
+
+    from repro_torch.dist import comm
+
+    results = queue.Queue()
+    results.put((0, "error", (10.0, "ValueError: controller fails")))
+    procs = [types.SimpleNamespace(exitcode=None),
+             types.SimpleNamespace(exitcode=1),
+             types.SimpleNamespace(exitcode=0)]
+    msg = comm._first_failure(
+        1, (10.5, "RuntimeError: Connection closed by peer"), results, procs,
+        done={2: None})
+    assert msg.splitlines()[0] == "spawn: rank 0 failed:"
+    assert "controller fails" in msg and msg.endswith("then ranks [1] failed")

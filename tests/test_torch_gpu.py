@@ -1134,6 +1134,70 @@ def test_flash_autograd_launches_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal,group", [(True, 2), (False, 1)])
+def test_flash_second_derivative_on_card_matches_cpu(cuda, causal, group):
+    """A Hessian-vector product through `ops.flash_attention` in float32:
+    on the card the first-order products launch the kernels (one forward,
+    and a backward for the graph plus one for the product's pass through
+    dO) and the second-order terms take the plain route once; the
+    product equals the CPU's (plain versions) within 1e-4 of its largest
+    magnitude. A third derivative raises."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    h, s, d = 4, 80, 128
+    shapes = ((1, h, s, d), (1, h // group, s, d), (1, h // group, s, d))
+    q, k, v = (rng.standard_normal(sh).astype(np.float32) for sh in shapes)
+    dirs = [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+    got = {}
+    for dev in ("cpu", cuda):
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_()
+                  for a in (q, k, v)]
+        counts = (flashattn.LAUNCHES, flashattn.BWD_LAUNCHES,
+                  flashattn.GRAD2_CALLS)
+        out = ops.flash_attention(*leaves, causal=causal)
+        grads = torch.autograd.grad(0.5 * (out * out).sum(), leaves,
+                                    create_graph=True)
+        hv = torch.autograd.grad(grads, leaves,
+                                 [torch.from_numpy(a).to(dev) for a in dirs],
+                                 create_graph=True)
+        got[str(dev)] = [t.detach().cpu() for t in hv]
+        moved = (flashattn.LAUNCHES - counts[0],
+                 flashattn.BWD_LAUNCHES - counts[1],
+                 flashattn.GRAD2_CALLS - counts[2])
+        assert moved == ((0, 0, 1) if dev == "cpu" else (1, 2, 1))
+        with pytest.raises(RuntimeError, match="third derivative"):
+            torch.autograd.grad(hv[0].sum(), leaves)
+    for a, b in zip(got[str(cuda)], got["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+def test_hvp_operator_on_card_matches_cpu(cuda):
+    """`HvpOperator.matmat` of reduced qwen2-1.5b on the card (one flash
+    forward launch per layer) against the CPU's on the same weights and
+    block, within 1e-4 of max |Hv|; the operator lives on the card by
+    default."""
+    from repro_torch import configs
+    from repro_torch.examples.curvature_spectrum import hessian_operator
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.reduced("qwen2-1.5b")
+    params = tf.init_model(0, cfg, device="cpu")
+    cpu = hessian_operator(cfg, device="cpu", params=params)
+    card = hessian_operator(cfg, params=adamw.tree_map(
+        lambda t: t.to(cuda), params))
+    assert card.device.type == "cuda" and card.n == cpu.n
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (cpu.n, 2)).astype(np.float32))
+    f0 = flashattn.LAUNCHES
+    got = card.matmat(x.to(cuda)).cpu()
+    assert flashattn.LAUNCHES - f0 == cfg.n_layers
+    want = cpu.matmat(x)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
 def test_reduced_train_step_on_card_matches_cpu(cuda):
     """One train step of reduced("qwen2-1.5b") in float32 with remat, two
     microbatches, on the card (flash forward and backward kernels) and on

@@ -165,6 +165,18 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch):
             bench.collect(smoke=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         dist_eigen_e2e.main(["--ranks", "1", "--n", "100", "--nnz", "400"])
+    # the Hessian operator and its example
+    from repro_torch.core import HvpOperator
+    from repro_torch.examples import curvature_spectrum
+
+    def loss(p):
+        return (p["w"] ** 4).sum()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HvpOperator(loss, {"w": torch.ones(4)})
+    assert HvpOperator(loss, {"w": torch.ones(4)},
+                       device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        curvature_spectrum.main()
 
 
 def test_serve_entry_points_without_device_raise_without_cuda(monkeypatch,
