@@ -52,7 +52,7 @@ otherwise. Phases, each of which fails the run:
      `stats_dict()`, the page path's rates (host spans) and the page
      root's filesystem; then one scrub pass, which must find no corrupt
      page; then the 2^20 image is freed;
- 10. SAFS streamed image: `rmat_graph(2**16, 2**19, seed=1,
+ 10. SAFS streamed image: `rmat_graph(2**15, 2**18, seed=1,
      symmetric=True)` packed as in 3, spilled by
      `GraphOperator(stream_image=True)` into a SAFS store as block-row
      spans; one streamed matmat equals the resident operator's bit for
@@ -120,7 +120,7 @@ once, and each width row's launches taken from the solve named here:
      entries), `NormalOperator.from_tiles`, `solve(a, 4, method="svd",
      block_size=2, at_op=at)`: converged, σ finite and descending,
      ‖A v − u σ‖/σ ≤ 1e-3 with v = Aᵀu/σ; SpMM, gram and tsgemm at 2;
- 19. shift-invert (F), on the resident 2^16 graph of 10:
+ 19. shift-invert (F), on the resident 2^15 graph of 10:
      `ShiftInvertOperator(op, σ, inner_solver="cg")` with σ 0.05 below
      `estimate_spectral_range`'s low end, `which="LM"`: untransformed
      eigenvalues at rtol 1e-5 of a `which="SA"` Krylov–Schur solve's, true
@@ -325,15 +325,17 @@ Training, after 31:
 
 The curvature spectrum, after 32:
  33. curvature. qwen2-1.5b at its published widths cut to 2 layers, in
-     float32 (a Hessian in bf16 is noise), remat off, weights drawn on
-     the card from a seed, one batch of 2 x 128 tokens:
+     float32 (a Hessian in bf16 is noise), remat on as published (a
+     double backward recomputes each layer), weights drawn on the card
+     from a seed, one batch of 2 x 128 tokens:
      `examples.curvature_spectrum.hessian_operator` (`HvpOperator`, about
      3.3e8 coordinates, n_logical printed) and `eigsh(op, 4,
      block_size=2, tol=1e-3, which="LA")` on the card, the subspace on
      the RAM tier as in every solve (the newest block on the card). One
      HVP column against the same column on the host CPU (plain versions)
-     within CURV_HVP_TOL of max |Hv|; symmetry |uᵀHv − vᵀHu| against
-     ‖u‖‖Hv‖;
+     within CURV_HVP_TOL of max |Hv|, and against the same column with
+     remat off on the card (same tolerance; bit equality printed);
+     symmetry |uᵀHv − vᵀHu| against ‖u‖‖Hv‖;
      the solve converged, every Ritz pair's true residual within
      CURV_RESID_TOL; the float32 flash forward and backward, gram and
      tsgemm launched in the solve (counters zeroed just before, read
@@ -342,13 +344,39 @@ The curvature spectrum, after 32:
      column, the solve's wall time and restarts, its host spans (matmat,
      store.get, store.demote) and host-tier bytes, peak device memory.
 
+Sharded training (`repro_torch.train.sharded`), after 33:
+ 34. sharded train. qwen2-1.5b at its published widths cut to 2 layers,
+     float32 (so that the comparison can be tight), remat on as
+     published, a global batch of 2 x 1,024 tokens, 3 steps, weights
+     from one seed: (a) the unsharded `train()`; (b) `train(mesh=)` in a
+     one-rank NCCL world on a (1, 1, 1) mesh, in this process; (c) four
+     gloo ranks sharing the card on a (1, 2, 2) mesh (`dist.spawn`, each
+     rank its own CUDA context, every collective staged through pinned
+     host memory). Gates: (b)'s losses and grad norms within rtol 1e-6 of
+     (a)'s, both under deterministic algorithms (bit equality printed:
+     the embedding's backward adds with atomics otherwise); (c)'s within
+     rtol 1e-4 and its final parameters (from the checkpoints, which
+     every run writes in the unsharded format) within 2·lr·steps + 1e-5
+     of (a)'s; every rank's
+     parameter and moment bytes equal to the specs' count; each step's
+     collective bytes equal to `Sharding.analytic_bytes`; staged bytes
+     nonzero on every gloo rank; the float32 flash forward and backward
+     launched exactly layers x 2 and layers times a step on every rank
+     of every run (remat's recompute, as in 32b), each process's
+     counters zeroed just before its run and read just after. Printed:
+     each run's step seconds (for (c), ranks sharing one card over
+     staged gloo: not a speed figure for training on several cards),
+     peak device memory per rank, collective bytes by kind, and the
+     phase's wall time.
+
 Then one JSON line of kernels (the four PR-15 rows, the nine width rows
 of 14, flash attention at yi-9b's shape and at hubert's head dim 80, the
 flash backward at qwen2's training layer (its launches 32c's) and in
 float32 (its launches 32b's), the float32 forward at 32b's shape (its
 launches 32b's); each row's `serve_launches` the launches
-at its width in phase 29, its `dist_launches` those in phase 30a), the
-card line, and the final result line.
+at its width in phase 29, its `dist_launches` those in phase 30a, its
+`shard_launches` those of phase 34's runs, every rank's), the card
+line, and the final result line.
 """
 from __future__ import annotations
 
@@ -386,10 +414,11 @@ NEV, BLOCK_SIZE, NUM_BLOCKS, TOL, MAX_ITERS = 8, 4, 8, 1e-5, 100
 RESID_TOL = 1e-4
 KERNEL_TOL = 1e-5   # |kernel − plain| ≤ KERNEL_TOL · Σ|terms|, per element
 REPS = 10
-# the streamed-image graph: rmat_graph(2**k, 2**(k+3)); k = 16 keeps the
-# phase near a minute on the card (every matmat pages the whole image
-# through the SAFS page path, 4 KiB at a time)
-STREAM_LOG2 = 16
+# the streamed-image graph: rmat_graph(2**k, 2**(k+3)); every matmat pages
+# the whole image through the SAFS page path, 4 KiB at a time, so the
+# solve's time follows the image's size: at k = 16 it took 101.7-145.7 s
+# on the card, k = 15 keeps the phase near a minute
+STREAM_LOG2 = 15
 
 # the rest of the solver family (phases 14-19): the widths it gives the
 # kernels, LOBPCG's tolerance and iteration cap, the Chebyshev filter's
@@ -553,6 +582,18 @@ CURV_LAYERS, CURV_BATCH, CURV_SEED = 2, (2, 128), 0
 CURV_NEV, CURV_BLOCK, CURV_TOL, CURV_RESTARTS = 4, 2, 1e-3, 60
 CURV_HVP_TOL, CURV_SYM_TOL, CURV_RESID_TOL = 1e-4, 1e-4, 1e-2
 CURV_REPS = 3
+# 34: sharded training: qwen2-1.5b at its published widths cut to
+# SHARD_LAYERS layers, float32, remat on, SHARD_BATCH sequences of
+# SHARD_SEQ tokens a step in one microbatch, SHARD_STEPS steps; (c) on
+# SHARD_SHAPE gloo ranks sharing the card. (b), one NCCL rank, within
+# SHARD_ONE_RTOL of (a) (the same operations in the same order: a
+# difference is a fault); (c) within SHARD_RTOL, its parameters within
+# 2·lr·steps + 1e-5 (tests/test_torch_train.py's tolerances: float32
+# sums in another order; Adam moves a parameter by about lr a step, and
+# a gradient element at rounding level may change sign)
+SHARD_LAYERS, SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 2, 2, 1024, 3
+SHARD_SHAPE, SHARD_LR, SHARD_WARMUP = (1, 2, 2), 3e-4, 2
+SHARD_ONE_RTOL, SHARD_RTOL = 1e-6, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -684,13 +725,17 @@ def kernels_per_call(torch, fn, calls: int = 4, windows: int = 3,
     `launched`, where given, reads the wrapper's own count of the device
     kernels it launched; the last window's profiler count must equal
     that count's growth over the window's calls, so a retry cannot hide a
-    launch that did not happen."""
+    launch that did not happen. CPU and CUDA activities, as
+    kernel_split's: CUDA-only windows lost a record in each of three
+    windows of one run (7, 7 and 5 kernels for 4 calls of the 2-kernel
+    SpMM at k = 1)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     word = torch.empty(1, device="cuda")
     for window in range(1, windows + 1):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 word.fill_(1.0)
             torch.cuda.synchronize()
@@ -1767,7 +1812,7 @@ def svd_phase(torch, dev) -> dict:
 
 
 def shift_invert_phase(torch, dev, tm) -> dict:
-    """Phase F: shift-invert (inner CG) on the resident 2^16 graph of phase
+    """Phase F: shift-invert (inner CG) on the resident 2^15 graph of phase
     10, σ below estimate_spectral_range's low end, against a "SA"
     Krylov–Schur solve of the same graph."""
     from repro_torch.core import (GraphOperator, ShiftInvertOperator,
@@ -4328,9 +4373,10 @@ def curvature_kernel_check(torch, v, hv, by_width: dict):
 
 def curvature_phase(torch, dev, card_line: str) -> None:
     """Phase 33: the Hessian spectrum of qwen2-1.5b's loss (published
-    widths, CURV_LAYERS layers, float32, remat off) through
+    widths, CURV_LAYERS layers, float32, remat on) through
     `examples.curvature_spectrum.hessian_operator` and `eigsh`, on the
-    card. Checks: one HVP column against the CPU's, symmetry, the Ritz
+    card. Checks: one HVP column against the CPU's and against remat
+    off, symmetry, the Ritz
     pairs' true residuals, and the launches of the float32 flash forward
     and backward, gram and tsgemm in the solve (counters zeroed just
     before it and read just after), with the plain second-order calls
@@ -4345,7 +4391,7 @@ def curvature_phase(torch, dev, card_line: str) -> None:
     t_phase = time.perf_counter()
     full = configs.get(TRAIN_ARCH)
     cfg = dataclasses.replace(full, n_layers=CURV_LAYERS,
-                              param_dtype="float32", remat=False)
+                              param_dtype="float32")
     log(f"curvature: {TRAIN_ARCH} at published widths: d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
         f"head dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
@@ -4354,12 +4400,12 @@ def curvature_phase(torch, dev, card_line: str) -> None:
         f"{full.n_layers})")
     log(f"curvature: reduction: float32 parameters (published "
         f"{full.param_dtype}; a Hessian in bf16 is noise)")
-    log(f"curvature: reduction: remat off (published remat {full.remat})")
+    log(f"curvature: remat {cfg.remat} as published: each HVP's double "
+        f"backward recomputes the layers")
     params = tf.init_model(CURV_SEED, cfg, device=dev)
     on_cpu = adamw.tree_map(lambda t: t.cpu(), params)
     op = hessian_operator(cfg, device=dev, params=params,
                           batch_shape=CURV_BATCH)
-    del params
     log(f"curvature: n_logical {op.n_logical} coordinates (n {op.n}), "
         f"{op.n * 4 / 1e9:.3f} GB per float32 vector; batch "
         f"{CURV_BATCH[0]} x {CURV_BATCH[1]} tokens, seed {CURV_SEED}")
@@ -4369,6 +4415,11 @@ def curvature_phase(torch, dev, card_line: str) -> None:
     x = torch.randn((op.n, 2), generator=gen, device=dev)
     x[op.n_logical:] = 0
     hx = op.matmat(x)
+    # the same column with remat off, on the card (the parameters shared)
+    off = hessian_operator(dataclasses.replace(cfg, remat=False),
+                           device=dev, params=params,
+                           batch_shape=CURV_BATCH).matmat(x[:, :1])
+    del params
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = hessian_operator(cfg, device="cpu", params=on_cpu,
@@ -4377,17 +4428,22 @@ def curvature_phase(torch, dev, card_line: str) -> None:
     del on_cpu
     scale = float(want.abs().max())
     hvp_err = float((hx[:, :1].cpu() - want).abs().max()) / scale
+    off_err = float((hx[:, :1] - off).abs().max()) / scale
+    off_same = bool(torch.equal(hx[:, :1], off))
+    del off
     u, v, hu, hv = x[:, 0].double(), x[:, 1].double(), hx[:, 0].double(), \
         hx[:, 1].double()
     sym = float(abs(u @ hv - v @ hu) / (u.norm() * hv.norm()))
     del u, v, hu, hv, want
     log(f"curvature: one HVP column card vs CPU: max |Δ| / max |Hv| "
         f"{hvp_err:.3e} (tol {CURV_HVP_TOL:g}; max |Hv| {scale:.4e}; CPU "
-        f"side {t_cpu:.1f} s) | symmetry |uᵀHv − vᵀHu| / (‖u‖‖Hv‖) "
-        f"{sym:.3e} (tol {CURV_SYM_TOL:g})")
-    if not (hvp_err <= CURV_HVP_TOL and sym <= CURV_SYM_TOL):
+        f"side {t_cpu:.1f} s) | remat on vs off on the card: {off_err:.3e} "
+        f"(tol {CURV_HVP_TOL:g}), bit-equal {off_same} | symmetry "
+        f"|uᵀHv − vᵀHu| / (‖u‖‖Hv‖) {sym:.3e} (tol {CURV_SYM_TOL:g})")
+    if not (hvp_err <= CURV_HVP_TOL and off_err <= CURV_HVP_TOL
+            and sym <= CURV_SYM_TOL):
         fail("curvature: the card's Hessian-vector product disagrees with "
-             "the CPU's, or is not symmetric")
+             "the CPU's or with remat off, or is not symmetric")
     times = []
     for _ in range(CURV_REPS):
         torch.cuda.synchronize()
@@ -4468,6 +4524,179 @@ def curvature_phase(torch, dev, card_line: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"curvature: phase 33 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def shard_rank(mesh, cfg, tcfg, dcfg) -> dict:
+    """A rank of phase 34c (`dist.spawn` starts it): `train(mesh=)` with
+    this process's launch counters zeroed just before and read just
+    after."""
+    from repro_torch.kernels import flashattn
+    from repro_torch.train import train
+    zero_counters()
+    out = train(cfg, tcfg, dcfg, mesh=mesh, log=lambda *_: None)
+    out["flash"] = (flashattn.LAUNCHES_BY_D.get(cfg.hd, 0),
+                    flashattn.BWD_LAUNCHES_BY_D.get(cfg.hd, 0))
+    return out
+
+
+def ckpt_params(root: str, step: int) -> list:
+    """The parameter leaves ("0/...") of a training checkpoint, as numpy
+    arrays in the stored order, without reading its moments."""
+    path = os.path.join(root, f"step_{step:010d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        names = json.load(f)["names"]
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        return [z[f"a{i}"] for i, n in enumerate(names)
+                if n.startswith("0/")]
+
+
+def sharded_train_phase(torch, dev, card_line: str) -> dict:
+    """Phase 34: sharded training on the card. (a) unsharded, (b) one NCCL
+    rank on (1, 1, 1) in this process, (c) SHARD_SHAPE gloo ranks sharing
+    the card; the gates of the module docstring. Returns the float32
+    flash forward and backward launches of the three runs, every rank's
+    (each process's counters zeroed just before its run, read just
+    after)."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig
+    from repro_torch.dist import comm
+    from repro_torch.kernels import flashattn
+    from repro_torch.train import TrainConfig, train
+    t_phase = time.perf_counter()
+    full = configs.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SHARD_LAYERS,
+                              param_dtype="float32")
+    log(f"sharded train: {TRAIN_ARCH} at published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied embeddings), remat "
+        f"{cfg.remat} as published | reductions: depth cut to "
+        f"{SHARD_LAYERS} layers (published {full.n_layers}) so that four "
+        f"ranks share one card; float32 parameters (published "
+        f"{full.param_dtype}) so that the comparison can be tight | "
+        f"{SHARD_BATCH} x {SHARD_SEQ} tokens a step, {SHARD_STEPS} steps")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=SHARD_SEQ,
+                      global_batch=SHARD_BATCH, seed=TRAIN_SEED)
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    n_params = sum(t.numel() for t in adamw.tree_leaves(
+        tf.init_model(0, cfg, device="meta")))
+    roots = {}
+
+    def tcfg(name):
+        roots[name], _ = ckpt_root(3 * 4 * n_params)
+        return TrainConfig(steps=SHARD_STEPS, ckpt_every=10 ** 9,
+                           ckpt_dir=roots[name], log_every=10 ** 9,
+                           peak_lr=SHARD_LR, warmup=SHARD_WARMUP,
+                           seed=TRAIN_SEED)
+
+    def counted(run):
+        zero_counters()
+        out = run()
+        torch.cuda.synchronize()
+        out["flash"] = (flashattn.LAUNCHES_BY_D.get(cfg.hd, 0),
+                        flashattn.BWD_LAUNCHES_BY_D.get(cfg.hd, 0))
+        return out
+
+    # (a) and (b) under deterministic algorithms: the embedding's backward
+    # adds with atomics otherwise, and (b) is (a) operation for operation
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        runs["a"] = [counted(lambda: train(cfg, tcfg("a"), dcfg, device=dev,
+                                           log=lambda *_: None))]
+        runs["a"][0]["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
+        comm.init_world("nccl", rank=0, world_size=1, device=dev)
+        try:
+            mesh = comm.Mesh((1, 1, 1), device=dev)
+            runs["b"] = [counted(lambda: train(cfg, tcfg("b"), dcfg,
+                                               mesh=mesh,
+                                               log=lambda *_: None))]
+        finally:
+            comm.close_world()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs["c"] = comm.spawn(shard_rank, SHARD_SHAPE, backend="gloo",
+                           device=dev, args=(cfg, tcfg("c"), dcfg),
+                           timeout=900)
+    t_c = time.perf_counter() - t0
+
+    a = runs["a"][0]
+    want = {"fwd": SHARD_LAYERS * 2 * SHARD_STEPS,
+            "bwd": SHARD_LAYERS * SHARD_STEPS}
+    bad = []
+    for name, outs in runs.items():
+        label = {"a": "(a) unsharded, one process",
+                 "b": "(b) one NCCL rank, mesh (1, 1, 1)",
+                 "c": f"(c) {len(outs)} gloo ranks sharing one card, mesh "
+                      f"{SHARD_SHAPE} (staged through host memory: not a "
+                      f"speed figure for training on several cards)"}[name]
+        for rank, o in enumerate(outs):
+            log(f"sharded train {label} rank {rank}: losses "
+                f"{[round(x, 6) for x in o['losses']]}, grad norms "
+                f"{[round(x, 6) for x in o['grad_norms']]} | step s "
+                f"{[round(x, 3) for x in o['step_s']]} | peak device "
+                f"memory {(o['peak_device_bytes'] or 0) / 1e9:.2f} GB | flash "
+                f"launches forward {o['flash'][0]} (want {want['fwd']}), "
+                f"backward {o['flash'][1]} (want {want['bwd']})"
+                + ("" if name == "a" else
+                   f" | held bytes {o['held_bytes']} | step collective "
+                   f"bytes {o['step_bytes'][0]} (design "
+                   f"{o['analytic_bytes']}), whole run "
+                   f"{o['mesh_bytes']}"))
+            if o["flash"] != (want["fwd"], want["bwd"]):
+                bad.append(f"{name}{rank}: flash launches {o['flash']}")
+            if not np.isfinite(o["losses"]).all() or \
+                    len(o["losses"]) != SHARD_STEPS:
+                bad.append(f"{name}{rank}: losses {o['losses']}")
+            if name == "a":
+                continue
+            design = {k: v for k, v in o["analytic_bytes"].items() if v}
+            if any({k: v for k, v in step.items() if k != "staged"}
+                   != design for step in o["step_bytes"]):
+                bad.append(f"{name}{rank}: collective bytes "
+                           f"{o['step_bytes']} against {design}")
+            held = o["held_bytes"]
+            if {k: held[k] for k in ("params", "moments")} != held["specs"]:
+                bad.append(f"{name}{rank}: held bytes {held}")
+            if name == "c" and not o["mesh_bytes"].get("staged"):
+                bad.append(f"c{rank}: no staged bytes")
+            rtol = SHARD_ONE_RTOL if name == "b" else SHARD_RTOL
+            for k in ("losses", "grad_norms"):
+                err = float(np.max(np.abs(np.subtract(o[k], a[k]))
+                                   / np.abs(a[k])))
+                if not err <= rtol:
+                    bad.append(f"{name}{rank}: {k} off (a)'s by {err:.3e}")
+    same_b = all(runs["b"][0][k] == a[k] for k in ("losses", "grad_norms"))
+    pa = ckpt_params(roots["a"], SHARD_STEPS)
+    tol = 2 * SHARD_LR * SHARD_STEPS + 1e-5
+    worst = {}
+    for name in ("b", "c"):
+        pb = ckpt_params(roots[name], SHARD_STEPS)
+        worst[name] = max(float(np.max(np.abs(x - y))) for x, y in
+                          zip(pa, pb))
+        del pb
+    del pa
+    for root in roots.values():
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"sharded train: (b) losses and grad norms bit-equal to (a)'s "
+        f"(both under deterministic algorithms): {same_b}; final parameters max |Δ| against (a): (b) "
+        f"{worst['b']:.3e}, (c) {worst['c']:.3e} (tol {tol:g}) | (c) "
+        f"spawn to last rank done {t_c:.1f} s | {card_line}")
+    if worst["c"] > tol or worst["b"] > tol:
+        bad.append(f"final parameters off (a)'s: {worst}")
+    if bad:
+        fail("sharded train: " + "; ".join(bad))
+    log(f"sharded train: phase 34 took {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    return {k: sum(o["flash"][i] for outs in runs.values() for o in outs)
+            for i, k in enumerate(("flash_attention_f32",
+                                   "flash_attention_bwd_f32"))}
 
 
 def small_reference_check(torch, dev) -> None:
@@ -4607,6 +4836,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     curvature_phase(torch, dev, card_line)                    # phase 33
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_counts = sharded_train_phase(torch, dev, card_line)  # phase 34
     for r in rows:      # the launches at each row's width in phases 29, 30a
         r["serve_launches"] = serve_launches(
             r["name"], serve_counts[0],
@@ -4617,10 +4849,12 @@ def main() -> None:
             "spmm_blocksparse_bf16": 0, "flash_attention": 0,
             "flash_attention_d80": 0, "flash_attention_bwd": 0,
             "flash_attention_bwd_f32": 0, "flash_attention_f32": 0})
+        r["shard_launches"] = shard_counts.get(r["name"], 0)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "serve_launches", "dist_launches")
+            "library_ms", "serve_launches", "dist_launches",
+            "shard_launches")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build "
         f"{build_s:.1f} s)")
     print(json.dumps({"kernels": [

@@ -25,8 +25,10 @@ Leaves may be torch tensors (on any device; copied to the host), numpy
 arrays or Python scalars; `restore` returns torch tensors.
 
 `restore(shardings=...)` is the reference's elastic reshard onto a
-training mesh; it raises until the mesh side of training is ported
-(ROADMAP.md queue 1 item 7.4).
+training mesh: given `models.sharding.Placement`s (`to_named`'s tree, or
+one placement for every leaf), each rank reads only its block of each
+array, from the stored array memory-mapped in place (`np.savez` stores
+its members uncompressed).
 """
 from __future__ import annotations
 
@@ -34,15 +36,18 @@ import hashlib
 import json
 import os
 import shutil
+import struct
 import threading
 import time
 import urllib.parse
+import zipfile
 from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.tree import flatten_with_paths as _flatten_with_paths
+from repro_torch.tree import tree_leaves as _tree_leaves
 from repro_torch.tree import unflatten as _unflatten
 
 MANIFEST = "manifest.json"
@@ -164,15 +169,41 @@ def latest_step(root: str, *, gc_stale_tmp: bool = True,
     return max(steps) if steps else None
 
 
+def _block(npz: str, name: str, slices: tuple) -> np.ndarray:
+    """`slices` of the array stored as member `name` of the npz file,
+    reading only the bytes they cover: the member's data memory-mapped
+    where it lies in the file (its local header, then the .npy header)."""
+    with zipfile.ZipFile(npz) as zf:
+        info = zf.getinfo(name + ".npy")
+    if info.compress_type != zipfile.ZIP_STORED:
+        with np.load(npz) as z:
+            return np.array(z[name][slices], order="C")
+    with open(npz, "rb") as f:
+        f.seek(info.header_offset + 26)
+        name_len, extra_len = struct.unpack("<HH", f.read(4))
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        version = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        offset = f.tell()
+    arr = np.memmap(npz, dtype=dtype, mode="r", offset=offset, shape=shape,
+                    order="F" if fortran else "C")
+    out = np.array(arr[slices], order="C")
+    del arr
+    return out
+
+
 def restore(root: str, step: int, like: Any, *, shardings: Any = None
             ) -> tuple[Any, dict]:
     """Restore into the structure of `like`: every leaf a torch tensor of
     the stored type, on the device of `like`'s leaf where that is a
-    tensor, else on the CPU. Returns (tree, extra)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) is the elastic reshard of training, "
-            "not ported yet: ROADMAP.md queue 1 item 7.4")
+    tensor, else on the CPU. Returns (tree, extra).
+
+    `shardings`: `Placement`s mirroring `like` (None for a leaf read
+    whole), or one placement for every leaf: each such leaf comes back as
+    this rank's block (the elastic reshard: any mesh reads any
+    checkpoint)."""
     path = os.path.join(root, f"step_{step:010d}")
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
@@ -180,10 +211,23 @@ def restore(root: str, step: int, like: Any, *, shardings: Any = None
     if names != manifest["names"]:
         raise ValueError("checkpoint structure mismatch: "
                          f"{set(names) ^ set(manifest['names'])}")
+    if shardings is None or hasattr(shardings, "spec"):
+        places = [shardings] * len(leaves)
+    else:
+        places = _tree_leaves(shardings)
+        if len(places) != len(leaves):
+            raise ValueError(f"{len(places)} shardings for {len(leaves)} "
+                             "leaves")
+    npz = os.path.join(path, "arrays.npz")
     new_leaves = []
-    with np.load(os.path.join(path, "arrays.npz")) as z:
-        for i, leaf in enumerate(leaves):
-            t = _decode(z[f"a{i}"], manifest["dtypes"][i])
+    with np.load(npz) as z:
+        for i, (leaf, place) in enumerate(zip(leaves, places)):
+            if place is None or not manifest["shapes"][i]:
+                arr = z[f"a{i}"]
+            else:
+                arr = _block(npz, f"a{i}",
+                             place.slices(manifest["shapes"][i]))
+            t = _decode(arr, manifest["dtypes"][i])
             if isinstance(leaf, torch.Tensor):
                 t = t.to(leaf.device)
             new_leaves.append(t)

@@ -8,9 +8,10 @@ part). A `Mesh` lays a (pod, data, model) grid over the ranks of one
 (`layout`). It holds the sub-groups the SpMM and the solver step reduce
 over and moves tensors between them:
 
-  all_gather      tiled along dim 0 over the row axes (the panel's column
-                  working set) or any other axis set;
-  reduce_scatter  sum, tiled along dim 0, over the model axis;
+  all_gather      tiled along dim 0 (or `dim`) over the row axes (the
+                  panel's column working set) or any other axis set;
+  reduce_scatter  sum, tiled along dim 0 (or `dim`), over the model axis
+                  or any other;
   all_reduce      sum or max over every axis, the pod axis, or every axis
                   but pod;
   scatter/gather  rank 0 (the controller) to and from every rank's shard;
@@ -160,6 +161,10 @@ class Mesh:
         self.r_groups, self.m_groups = pod * data, model
         self.g, self.m = divmod(self.rank, model)
         self.pod = self.g // data
+        # this rank's index on each axis (rank = (pod·D + data)·M + model)
+        self.coords: Dict[str, int] = {"pod": self.pod,
+                                       "data": self.g % data,
+                                       "model": self.m}
         self.bytes: Dict[str, int] = collections.Counter()
         # every rank creates every group, in one order (torch.distributed
         # requires it); a group of one rank other than a one-rank world
@@ -175,6 +180,8 @@ class Mesh:
                     for d in range(data) for m in range(model)],
             "nonpod": [[p * data * model + j for j in range(data * model)]
                        for p in range(pod)],
+            "data": [[(p * data + d) * model + m for d in range(data)]
+                     for p in range(pod) for m in range(model)],
         }
         for axis, lists in specs.items():
             for ranks in lists:
@@ -227,8 +234,11 @@ class Mesh:
         return t.view(torch.float16) if t.dtype == torch.bfloat16 else t
 
     # -------------------------------------------------------- collectives
-    def all_gather(self, x: torch.Tensor, axis: str = "rows") -> torch.Tensor:
-        """Concatenate every member's x along dim 0, in group rank order."""
+    def all_gather(self, x: torch.Tensor, axis: str = "rows",
+                   dim: int = 0) -> torch.Tensor:
+        """Concatenate every member's x along `dim`, in group rank order."""
+        if dim:
+            return self.all_gather(x.movedim(dim, 0), axis).movedim(0, dim)
         grp, n = self._groups[axis]
         x = x.contiguous()
         out_shape = (x.shape[0] * n,) + tuple(x.shape[1:])
@@ -243,9 +253,12 @@ class Mesh:
         _all_gather(self._wire(out), self._wire(src), group=grp)
         return self._to_device(out) if stage else out
 
-    def reduce_scatter(self, x: torch.Tensor, axis: str = "model"
-                       ) -> torch.Tensor:
-        """Sum every member's x and keep this member's dim-0 tile."""
+    def reduce_scatter(self, x: torch.Tensor, axis: str = "model",
+                       dim: int = 0) -> torch.Tensor:
+        """Sum every member's x and keep this member's tile along `dim`."""
+        if dim:
+            return self.reduce_scatter(x.movedim(dim, 0), axis).movedim(
+                0, dim)
         grp, n = self._groups[axis]
         x = x.contiguous()
         self._count("reduce_scatter", x)
@@ -336,6 +349,25 @@ class Mesh:
 
 
 # ---------------------------------------------------------------- spawn
+def run_calls(mesh: Mesh, calls: Sequence[tuple]) -> List[object]:
+    """Several programs in one world, in order: each call is (shape, fn,
+    args, kwargs), run as fn(mesh of `shape`, *args, **kwargs) on every
+    rank (every rank builds each mesh, in one order). A `spawn` rank
+    function: starting a world once costs more than most programs. The
+    results come back with every tensor as a numpy array (a tensor sent
+    between processes is shared through a handle that dies with its
+    rank)."""
+    from repro_torch.tree import tree_map
+    out = []
+    for shape, fn, args, kwargs in calls:
+        m = (mesh if tuple(shape) == tuple(mesh.shape.values())
+             else Mesh(shape, device=mesh.device))
+        out.append(tree_map(lambda x: x.detach().cpu().numpy()
+                            if isinstance(x, torch.Tensor) else x,
+                            fn(m, *args, **kwargs)))
+    return out
+
+
 def _rank_main(rank: int, shape, backend: str, device: str,
                init_method: str, timeout: float, fn, args, results) -> None:
     """One rank of `spawn`: join the world, build the mesh, run fn."""

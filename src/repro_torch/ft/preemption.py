@@ -31,3 +31,16 @@ class PreemptionGuard:
 
     def trigger(self) -> None:  # for tests
         self._flag.set()
+
+
+class SignalAt:
+    """A log sink that sends this process `sig` when the trainer logs
+    step `step` ("step     3 loss ..."): a preemption at a chosen step,
+    as the checkpoint tests' fault plans crash at a chosen site."""
+
+    def __init__(self, step: int, sig=signal.SIGTERM):
+        self.step, self.sig = step, sig
+
+    def __call__(self, msg: str) -> None:
+        if msg.startswith(f"step {self.step:5d} "):
+            signal.raise_signal(self.sig)

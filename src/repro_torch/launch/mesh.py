@@ -4,7 +4,8 @@ The reference builds JAX device meshes; the sharding spec engine
 (`models.sharding`, `optim.adamw.shard_opt_spec`) reads only a mesh's
 axis names and their sizes, so here a mesh is that description,
 `MeshShape`, with no devices behind it. `dist.comm.Mesh` is the device
-analogue (a (pod, data, model) grid over a `torch.distributed` world).
+analogue (a (pod, data, model) grid over a `torch.distributed` world);
+`rank_grid` gives the grid a `MeshShape` maps to.
 """
 from __future__ import annotations
 
@@ -49,6 +50,12 @@ def make_debug_mesh(n_devices: int, *, multi_pod: bool = False) -> MeshShape:
     while n % d:
         d -= 1
     return MeshShape(("data", "model"), (d, n // d))
+
+
+def rank_grid(mesh: MeshShape) -> Tuple[int, int, int]:
+    """A mesh's (pod, data, model) sizes, a missing axis of size 1: the
+    shape of the `dist.comm.Mesh` that runs it on ranks."""
+    return tuple(mesh.shape.get(a, 1) for a in ("pod", "data", "model"))
 
 
 def data_axes(mesh) -> tuple:

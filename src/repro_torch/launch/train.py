@@ -3,13 +3,21 @@
   python -m repro_torch.launch.train --arch qwen2-1.5b --reduced --steps 100
   python -m repro_torch.launch.train --arch qwen2-1.5b --steps 6 \
       --seq-len 4096 --global-batch 4 --microbatches 2 --ckpt-dir /dev/shm/ck
+  python -m repro_torch.launch.train --arch qwen2-1.5b --reduced --steps 10 \
+      --world 4 --backend gloo --device cpu
 
 Trains on the CUDA card (the flash forward and backward kernels) unless
 `--device cpu`; without a card and without `--device cpu` it raises.
 Checkpoint/restart, preemption handling and the deterministic pipeline
-come from train.trainer; rerun with the same --ckpt-dir to resume. The
-reference's debug mesh has no counterpart: one process trains on one
-device (sharded training is ROADMAP queue 1 item 7.4).
+come from train.trainer; rerun with the same --ckpt-dir to resume.
+
+`--world N` (N > 1) trains sharded on N ranks started by `dist.spawn`:
+the reference's debug mesh `make_debug_mesh(N)`, (data d, model N/d),
+as a (1, d, N/d) `dist.comm.Mesh`. `--backend nccl` needs a card per
+rank; ranks that share a card, or the CPU, take gloo (CUDA tensors
+staged through host memory). A backend that does not fit the device
+raises (`comm.check_backend`): nothing falls back. `--world 1` is the
+single process of before.
 """
 from __future__ import annotations
 
@@ -17,7 +25,15 @@ import argparse
 
 from repro_torch import configs
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.dist import comm
+from repro_torch.launch.mesh import make_debug_mesh, rank_grid
 from repro_torch.train.trainer import TrainConfig, train
+
+
+def rank_main(mesh, cfg, tcfg: TrainConfig, dcfg: DataConfig, *,
+              log=print) -> dict:
+    """One rank of a sharded run (`dist.spawn`'s rank function)."""
+    return train(cfg, tcfg, dcfg, mesh=mesh, log=log)
 
 
 def main(argv=None) -> dict:
@@ -34,6 +50,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--world", type=int, default=1,
+                    help="ranks of a sharded run (1: one process)")
+    ap.add_argument("--backend", choices=comm.BACKENDS, default="gloo")
     args = ap.parse_args(argv)
 
     cfg = configs.reduced(args.arch) if args.reduced else configs.get(args.arch)
@@ -46,8 +65,15 @@ def main(argv=None) -> dict:
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       global_batch=args.global_batch, seed=args.seed)
     # "cuda" is the default device, which raises without a card
-    summary = train(cfg, tcfg, dcfg,
-                    device=None if args.device == "cuda" else "cpu")
+    device = None if args.device == "cuda" else "cpu"
+    if args.world == 1:
+        summary = train(cfg, tcfg, dcfg, device=device)
+    else:
+        shape = rank_grid(make_debug_mesh(args.world))
+        print(f"mesh (pod, data, model) = {shape} over {args.world} "
+              f"{args.backend} ranks")
+        summary = comm.spawn(rank_main, shape, backend=args.backend,
+                             device=device, args=(cfg, tcfg, dcfg))[0]
     print("summary:", summary)
     return summary
 

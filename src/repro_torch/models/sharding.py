@@ -18,14 +18,25 @@ PartitionSpec terms (as `dist.dspmm.edge_spec` has them): None
 is that name, as a PartitionSpec normalizes it. The engine reads only a
 mesh's `axis_names` and its `shape` mapping (`launch.mesh.MeshShape`, or
 `dist.comm.Mesh`) and the leaves' shapes, so meta tensors do: no weight
-is materialized. Applying the specs to tensors (`to_named`) is sharded
-training, ROADMAP.md queue 1 item 7.4.
+is materialized.
+
+Applying the specs to tensors takes a `dist.comm.Mesh` (a world of
+ranks): `to_named` turns each spec into a `Placement`, the port's
+`NamedSharding`. A dim whose spec names axes is cut into equal blocks in
+the spec's axis order (a rank's index on ('pod', 'data') is
+pod·D + data); `shard` keeps this rank's block of a full tensor (no
+communication) and `unshard` all-gathers the blocks back, one axis at a
+time, innermost first. Sharded training (`train.sharded`) is built on
+them.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
-from typing import Any
+from typing import Any, Iterator
+
+import torch
 
 from repro_torch.launch.mesh import data_axes
 from repro_torch.tree import flatten_with_paths, unflatten
@@ -163,9 +174,91 @@ def cache_specs(cache: Any, cfg, mesh, batch: int,
     return unflatten(cache, specs)
 
 
+def _axes(entry) -> tuple:
+    """The mesh axes of one spec entry, outermost first."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placement:
+    """Where a tensor lives on a `dist.comm.Mesh`: `spec` (one entry per
+    dim, as the engine writes it) read at this rank's coordinates. The
+    port's `NamedSharding`; `restore(shardings=)` takes it."""
+    spec: tuple
+    mesh: Any
+
+    def part(self, dim: int) -> tuple[int, int]:
+        """(this rank's block index, the number of blocks) along `dim`."""
+        index, count = 0, 1
+        entry = self.spec[dim] if dim < len(self.spec) else None
+        for a in _axes(entry):
+            size = self.mesh.shape[a]
+            index, count = index * size + self.mesh.coords[a], count * size
+        return index, count
+
+    def slices(self, shape) -> tuple:
+        """This rank's block of a full tensor of `shape`, as slices."""
+        out = []
+        for dim, n in enumerate(shape):
+            index, count = self.part(dim)
+            if n % count:
+                raise ValueError(f"dim {dim} of {tuple(shape)} does not "
+                                 f"split into {count} blocks ({self.spec})")
+            out.append(slice(index * (n // count), (index + 1) * (n // count)))
+        return tuple(out)
+
+    def block_shape(self, shape) -> tuple:
+        return tuple(s.stop - s.start for s in self.slices(shape))
+
+    def replica(self) -> bool:
+        """Whether this rank holds the first copy of its block: index 0
+        on every axis the spec leaves out (a block held on several ranks
+        counts once in a sum over ranks)."""
+        used = {a for e in self.spec for a in _axes(e)}
+        return all(self.mesh.coords[a] == 0 for a in self.mesh.axis_names
+                   if a not in used)
+
+    def gather_plan(self, block_shape) -> Iterator[tuple]:
+        """(dim, axis, gathered shape) of each all-gather `unshard` makes,
+        in order: each dim, its axes innermost first."""
+        shape = list(block_shape)
+        for dim, entry in enumerate(self.spec):
+            for a in reversed(_axes(entry)):
+                shape[dim] *= self.mesh.shape[a]
+                yield dim, a, tuple(shape)
+
+
+def _map_specs(fn, tree):
+    """fn over the spec tuples of a tree of specs (dicts, lists and
+    NamedTuples of spec tuples), in the tree's leaf order (dict keys
+    sorted)."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_map_specs(fn, v) for v in tree]
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(_map_specs(fn, v) for v in tree))
+    return fn(tree)
+
+
 def to_named(tree_specs: Any, mesh) -> Any:
-    """The reference places arrays by these specs (`NamedSharding`); the
-    port applies them in sharded training, not yet ported."""
-    raise NotImplementedError(
-        "to_named: applying sharding specs to tensors is sharded training, "
-        "ROADMAP.md queue 1 item 7.4 (not yet ported)")
+    """Each spec of the tree as a `Placement` on `mesh`, a
+    `dist.comm.Mesh` (the reference's `NamedSharding(mesh, P(*spec))`)."""
+    return _map_specs(lambda spec: Placement(tuple(spec), mesh), tree_specs)
+
+
+def shard(full: torch.Tensor, placement: Placement) -> torch.Tensor:
+    """This rank's block of `full`, a tensor of its own (no communication:
+    every rank holds `full`)."""
+    return full[placement.slices(full.shape)].clone(
+        memory_format=torch.contiguous_format)
+
+
+def unshard(block: torch.Tensor, placement: Placement) -> torch.Tensor:
+    """The full tensor from every rank's block: an all-gather along each
+    sharded dim over each of its axes (counted in `mesh.bytes`)."""
+    for dim, axis, _ in placement.gather_plan(block.shape):
+        block = placement.mesh.all_gather(block, axis=axis, dim=dim)
+    return block.contiguous()

@@ -5,7 +5,10 @@ Each builder returns a plain function of explicit state. The train step
 takes gradients with `torch.autograd.grad` through detached aliases of
 the parameters (no copy; the caller's tensors are not touched) and, over
 several microbatches, sums them in float32 in microbatch order and
-scales by 1/num_microbatches, as the reference's `lax.scan` does.
+scales by 1/num_microbatches, as the reference's `lax.scan` does. Given
+a `train.sharded.Sharding`, the same step runs on parameter and moment
+blocks: it keeps this rank's rows of the batch, gathers the parameters
+on use, and takes the loss, the clip and the update from the sharding.
 """
 from __future__ import annotations
 
@@ -53,16 +56,19 @@ def _microbatch(batch: dict, n: int, i: int) -> dict:
 def build_train_step(cfg: ArchConfig, *, num_microbatches: int = 1,
                      peak_lr: float = 3e-4, warmup: int = 100,
                      total_steps: int = 10000, max_grad_norm: float = 1.0,
-                     device=None):
+                     device=None, sharding=None):
     """(params, opt_state, batch) → (params, opt_state, metrics), metrics
     {"loss", "grad_norm", "lr"} as 0-d tensors on the parameters' device.
     The batch holds numpy arrays or tensors ("tokens" or "frames",
     "targets", "image_embeds"); the global batch must split evenly into
-    the microbatches."""
+    the microbatches (a rank's rows, with `sharding`)."""
+    gather = None if sharding is None else sharding.gather
+    clip = adamw.global_norm_clip if sharding is None else sharding.clip
+    update = adamw.update if sharding is None else sharding.update
 
     def value_and_grad(params, mb):
         alias = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss = tf.loss_fn(alias, cfg, mb, device=device)
+        loss = tf.loss_fn(alias, cfg, mb, device=device, gather=gather)
         grads = torch.autograd.grad(loss, adamw.tree_leaves(alias))
         return loss.detach(), adamw.tree_unflatten(params, list(grads))
 
@@ -89,11 +95,15 @@ def build_train_step(cfg: ArchConfig, *, num_microbatches: int = 1,
         return acc_l * scale, adamw.tree_map(lambda x: x * scale, acc_g)
 
     def train_step(params, opt_state, batch):
-        l, g = grads_of(params, batch)
-        g, gnorm = adamw.global_norm_clip(g, max_grad_norm)
+        if sharding is None:
+            l, g = grads_of(params, batch)
+        else:
+            l, g = sharding.mean_over_rows(
+                *grads_of(params, sharding.local_batch(batch)))
+        g, gnorm = clip(g, max_grad_norm)
         lr = warmup_cosine(opt_state.step, peak_lr=peak_lr, warmup=warmup,
                            total=total_steps)
-        params, opt_state = adamw.update(opt_state, g, params, lr=lr)
+        params, opt_state = update(opt_state, g, params, lr=lr)
         return params, opt_state, {"loss": l, "grad_norm": gnorm, "lr": lr}
 
     return train_step

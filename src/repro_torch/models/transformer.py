@@ -20,8 +20,17 @@ slice. With cfg.remat and grad enabled, each super-layer runs under
 scan body in `jax.checkpoint`: its activations are dropped and
 recomputed in the backward, the flash forward included; the recompute
 does not log MoE routings (`moe.routing_log_paused`), so
-`moe.ROUTING_LOG` sees each routing once. The remainder layers run
-without remat, as in the reference.
+`moe.ROUTING_LOG` sees each routing once. A double backward (a
+Hessian-vector product) recomputes a layer more than once, so the
+recompute's contexts are made anew at each entry. The remainder layers
+run without remat, as in the reference.
+
+Sharded training (`train.sharded`) passes `gather`, a hook that turns a
+subtree of parameter blocks into full parameters: `logits_fn` and
+`forward` call it once on every leaf outside the stack, and each
+super-layer calls it on its slice inside the remat region, so a
+recompute gathers again rather than keeping a full layer alive. Without
+it (`gather=None`) nothing changes.
 
 Frontends are stubs, as in the reference: an audio model takes frame
 embeddings (B, S, D) through `embed.in_proj`, a patch model takes patch
@@ -206,21 +215,50 @@ def _unbind(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _super_layer(cfg, sp, x, positions, encoder):
+def _super_layer(cfg, sp, x, positions, encoder, gather=None):
     """One repetition of cfg.pattern (the reference's scan body)."""
+    if gather is not None:
+        sp = gather("stack", sp)
     for i, kind in enumerate(cfg.pattern):
         x = _apply_layer(cfg, sp[f"l{i}"], kind, x, positions, encoder)
     return x
 
 
+class _RoutingLogPaused:
+    """`moe.routing_log_paused()` that can be entered again and again: a
+    fresh generator context at each entry."""
+
+    def __enter__(self):
+        self._ctx = moe_mod.routing_log_paused()
+        return self._ctx.__enter__()
+
+    def __exit__(self, *exc):
+        return self._ctx.__exit__(*exc)
+
+
 def _recompute_contexts():
-    return contextlib.nullcontext(), moe_mod.routing_log_paused()
+    return contextlib.nullcontext(), _RoutingLogPaused()
 
 
-def forward(params, cfg: ArchConfig, inputs, *, encoder=None, device=None):
+def _gather_top(params, gather):
+    """Every leaf outside the stack full (one `gather` call); the stack's
+    blocks as they are."""
+    if gather is None:
+        return params
+    top = gather("", {k: v for k, v in params.items() if k != "stack"})
+    return {**top, "stack": params["stack"]}
+
+
+def forward(params, cfg: ArchConfig, inputs, *, encoder=None, device=None,
+            gather=None):
     """inputs: int tokens (B,S), or frame embeddings (B,S,D) for audio
     frontends; encoder: patch embeddings (B,n_img,D) for cross layers.
     Returns final hidden states (B,S,D)."""
+    return _forward(_gather_top(params, gather), cfg, inputs, encoder,
+                    device, gather)
+
+
+def _forward(params, cfg, inputs, encoder, device, gather):
     x = _embed(params, cfg, inputs, device)
     encoder = _encoder(cfg, encoder, device, x)
     positions = torch.arange(x.shape[1], dtype=torch.float32,
@@ -230,21 +268,24 @@ def forward(params, cfg: ArchConfig, inputs, *, encoder=None, device=None):
         if remat:
             # the layers draw no random numbers: no RNG state to keep
             x = checkpoint(_super_layer, cfg, sp, x, positions, encoder,
-                           use_reentrant=False, preserve_rng_state=False,
+                           gather, use_reentrant=False,
+                           preserve_rng_state=False,
                            context_fn=_recompute_contexts)
         else:
-            x = _super_layer(cfg, sp, x, positions, encoder)
+            x = _super_layer(cfg, sp, x, positions, encoder, gather)
     for i, p in enumerate(params["rem"]):
         x = _apply_layer(cfg, p, cfg.pattern[i], x, positions, encoder)
     return apply_norm(cfg, params["final_norm"], x)
 
 
-def logits_fn(params, cfg, inputs, *, encoder=None, device=None):
-    return lm_logits(cfg, params, forward(params, cfg, inputs,
-                                          encoder=encoder, device=device))
+def logits_fn(params, cfg, inputs, *, encoder=None, device=None,
+              gather=None):
+    params = _gather_top(params, gather)
+    return lm_logits(cfg, params, _forward(params, cfg, inputs, encoder,
+                                           device, gather))
 
 
-def loss_fn(params, cfg, batch, *, device=None):
+def loss_fn(params, cfg, batch, *, device=None, gather=None):
     """Mean next-token cross entropy over the batch's "targets", from
     "tokens" (or "frames" for an audio frontend, with "image_embeds" for
     a patch frontend). Differentiable in the parameters: the flash
@@ -252,7 +293,7 @@ def loss_fn(params, cfg, batch, *, device=None):
     inp = batch.get("frames") if cfg.frontend == "audio" else \
         batch["tokens"]
     logits = logits_fn(params, cfg, inp, encoder=batch.get("image_embeds"),
-                       device=device)
+                       device=device, gather=gather)
     targets = torch.as_tensor(batch["targets"], device=logits.device)
     return cross_entropy(logits, targets)
 

@@ -12,8 +12,9 @@ trees (the inputs are not changed): the trainer drops the old ones.
 `shard_opt_spec` spreads a moment over a mesh's data axis (ZeRO-1) on
 top of its parameter's spec, and `zero1_sharding` is the reference's
 conservative default; both work on the spec tuples of
-`models.sharding`. Applying them to tensors is sharded training
-(ROADMAP.md queue 1 item 7.4).
+`models.sharding`. Sharded training (`train.sharded`) keeps each
+moment as its rank's block by `shard_opt_spec` and runs `update` on the
+part of the parameter block that the moment block covers.
 """
 from __future__ import annotations
 

@@ -1756,3 +1756,66 @@ def test_dist_nccl_refuses_more_ranks_than_cards(cuda):
     with pytest.raises(RuntimeError, match="one card per rank"):
         spawn(run_ranks, (1, 1, ranks), backend="nccl", device="cuda",
               args=(_dist_cfg(),))
+
+
+@pytest.mark.gpu
+def test_hvp_operator_under_remat_on_card(cuda):
+    """remat=True (every published config's setting) through a double
+    backward on the card: each recompute enters its context afresh, and
+    the block equals the remat-off block within 1e-4 of max |Hv| (the
+    embedding's backward adds with atomics, so not bit for bit)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.examples.curvature_spectrum import hessian_operator
+    from repro_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.reduced("qwen2-1.5b"), remat=True)
+    params = tf.init_model(0, cfg, device=cuda)
+    ops_ = {r: hessian_operator(dataclasses.replace(cfg, remat=r),
+                                params=params) for r in (True, False)}
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (ops_[True].n, 2)).astype(np.float32)).to(cuda)
+    f0 = flashattn.LAUNCHES
+    got = ops_[True].matmat(x)
+    assert flashattn.LAUNCHES - f0 > cfg.n_layers     # recomputed
+    want = ops_[False].matmat(x)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,shape", [("nccl", (1, 1, 1)),
+                                           ("gloo", (1, 1, 2))])
+def test_sharded_train_on_card(cuda, tmp_path, backend, shape):
+    """`train(mesh=)` of reduced qwen2-1.5b (float32, remat) in a world
+    on the card (nccl: one rank; gloo: two sharing the card, staged
+    through pinned host memory) against the unsharded `train()` on the
+    card: losses and grad norms within rtol 1e-4, every step's
+    collective bytes equal to the design's count, the held bytes equal
+    to the specs', staged bytes only over gloo."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import DataConfig
+    from repro_torch.dist import spawn
+    from repro_torch.launch.train import rank_main
+    from repro_torch.train import TrainConfig, train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.reduced("qwen2-1.5b"), remat=True)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+
+    def tcfg(name):
+        return TrainConfig(steps=3, ckpt_every=100, log_every=1000,
+                           peak_lr=1e-3, warmup=2, num_microbatches=2,
+                           ckpt_dir=str(tmp_path / name))
+    want = train(cfg, tcfg("plain"), dcfg, log=lambda *_: None)
+    outs = spawn(rank_main, shape, backend=backend, device="cuda",
+                 args=(cfg, tcfg("mesh"), dcfg), timeout=300)
+    for o in outs:
+        for k in ("losses", "grad_norms"):
+            np.testing.assert_allclose(o[k], want[k], rtol=1e-4)
+        design = {k: v for k, v in o["analytic_bytes"].items() if v}
+        for step in o["step_bytes"]:
+            assert {k: v for k, v in step.items() if k != "staged"} == design
+        held = o["held_bytes"]
+        assert {k: held[k] for k in ("params", "moments")} == held["specs"]
+        assert (o["mesh_bytes"].get("staged", 0) > 0) == (backend == "gloo")
+        assert o["peak_device_bytes"] > 0

@@ -20,10 +20,14 @@ example.
   (`convert.params_from_arrays`), batch and seeded block, held to
   `HVP_TOL` of max |Hv| (reverse over reverse against forward over
   reverse, float32 both; measured worst 2.07e-6, danube).
+- `HvpOperator` under remat (`cfg.remat=True`, every published
+  config's setting) on the same three models: bit-equal to remat off,
+  and held to `HVP_TOL` of the reference's remat=True block.
 - The example: its top eigenvalues against the reference example's
   (the same weights, the reference's start block passed as `x0`),
   within the solve's tol 1e-3.
 """
+import dataclasses
 import functools
 
 import jax
@@ -306,6 +310,37 @@ def test_hvp_matmat_matches_reference(name):
     got = op.matmat(torch.from_numpy(x)).numpy()
     assert np.abs(want).max() > 0
     _close(got, want, HVP_TOL)
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "h2o-danube-3-4b",
+                                  "mamba2-780m"])
+def test_hvp_matmat_under_remat(name):
+    """With remat=True (every published config's setting) a double
+    backward recomputes each super-layer more than once, so the
+    recompute's context must be re-enterable (it raised
+    AttributeError before). The block equals the remat-off block bit for
+    bit (the recompute repeats the same operations) and the reference's
+    remat=True block within HVP_TOL."""
+    cfg = dataclasses.replace(configs.reduced(name), remat=True)
+    ref_cfg = dataclasses.replace(ref_configs.reduced(name), remat=True)
+    batch = _batch(cfg)
+    arrays = adamw.tree_map(lambda t: t.numpy(),
+                            tf.init_model(5, cfg, device="cpu"))
+    rbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    rop = RefHvpOperator(lambda p: ref_tf.loss_fn(p, ref_cfg, rbatch),
+                         jax.tree_util.tree_map(jnp.asarray, arrays))
+    ops_ = {remat: HvpOperator(
+        lambda p, c=dataclasses.replace(cfg, remat=remat): tf.loss_fn(
+            p, c, batch, device="cpu"),
+        params_from_arrays(arrays, device="cpu"), device="cpu")
+        for remat in (True, False)}
+    x = np.random.default_rng(11).standard_normal((rop.n, 2)).astype(
+        np.float32)
+    got = ops_[True].matmat(torch.from_numpy(x))
+    assert torch.equal(got, ops_[False].matmat(torch.from_numpy(x)))
+    want = np.asarray(rop.matmat(jnp.asarray(x)))
+    assert np.abs(want).max() > 0
+    _close(got.numpy(), want, HVP_TOL)
 
 
 @functools.lru_cache(maxsize=None)

@@ -173,12 +173,22 @@ def test_mesh_shapes():
 
 
 def test_to_named_waits_for_sharded_training():
-    m = MESHES["16x16"]
-    specs = shd.param_specs(tf.init_model(0, configs.get("qwen2-1.5b"),
-                                          device="meta"),
-                            configs.get("qwen2-1.5b"), m)
-    with pytest.raises(NotImplementedError, match="item 7.4"):
-        shd.to_named(specs, m)
+    """`to_named` places each spec on a device mesh: one `Placement` per
+    leaf, holding the spec; on a (1, 1, 1) mesh every block is the whole
+    leaf, and `shard`/`unshard` give it back bit for bit."""
+    from repro_torch.dist import comm
+    m = comm.Mesh((1, 1, 1), device="cpu")
+    cfg = configs.reduced("qwen2-1.5b")
+    params = tf.init_model(0, cfg, device="cpu")
+    specs = shd.param_specs(params, cfg, m)
+    named = shd.to_named(specs, m)
+    got, want = [], []
+    shd._map_specs(got.append, named)
+    shd._map_specs(want.append, specs)
+    assert [p.spec for p in got] == want and all(p.mesh is m for p in got)
+    for leaf, p in zip(adamw.tree_leaves(params), got):
+        assert p.block_shape(leaf.shape) == tuple(leaf.shape)
+        assert torch.equal(shd.unshard(shd.shard(leaf, p), p), leaf)
 
 
 def test_specs_read_a_device_mesh_too():

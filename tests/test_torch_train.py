@@ -364,11 +364,25 @@ def test_jax_checkpoint_resumes_in_port_trainer(tmp_path):
 
 
 def test_trainer_refuses_a_mesh_and_launcher_trains(tmp_path, capsys):
+    """A mesh no longer raises: on a (1, 1, 1) mesh (one rank, no world)
+    the sharded step is the unsharded one, losses, norms and checkpoint
+    bit for bit (tests/test_torch_sharded_train.py runs four ranks)."""
+    from repro_torch.dist import comm
     cfg = configs.reduced("qwen2-1.5b")
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train(cfg, TrainConfig(ckpt_dir=str(tmp_path)), dcfg, mesh=object(),
-              device="cpu")
+    runs = {}
+    for name, mesh in (("plain", None),
+                       ("mesh", comm.Mesh((1, 1, 1), device="cpu"))):
+        runs[name] = train(cfg, TrainConfig(
+            steps=2, log_every=1000, ckpt_dir=str(tmp_path / name)), dcfg,
+            mesh=mesh, log=quiet, device="cpu")
+    for k in ("losses", "grad_norms"):
+        assert runs["mesh"][k] == runs["plain"][k]
+    like = steps.init_all(0, cfg, device="cpu")
+    _leaves_equal(ckpt.restore(str(tmp_path / "mesh"), 2, like)[0],
+                  ckpt.restore(str(tmp_path / "plain"), 2, like)[0])
+    assert runs["mesh"]["step_bytes"][0] == {
+        k: v for k, v in runs["mesh"]["analytic_bytes"].items() if v}
     s = launch_train.main(["--arch", "qwen2-1.5b", "--reduced", "--steps",
                            "2", "--global-batch", "2", "--seq-len", "8",
                            "--ckpt-dir", str(tmp_path / "ck"), "--device",
