@@ -369,6 +369,26 @@ Sharded training (`repro_torch.train.sharded`), after 33:
      peak device memory per rank, collective bytes by kind, and the
      phase's wall time.
 
+The dry run (`repro_torch.launch.dryrun`), after 34:
+ 35. dry run against the card. (a) Phase 34(c)'s program traced on a
+     `DryMesh` for each of its four ranks: each rank's traced step
+     collective bytes by kind must equal what that gloo rank's
+     `Mesh.bytes` counted in each of 34(c)'s steps (staging aside), and
+     its arguments' parameter and moment bytes what it held. (b) The dry
+     run of 32c's step (qwen2-1.5b at published size, 4 x 4,096 tokens,
+     2 microbatches, one rank): its predicted peak (arguments + temp)
+     and traced FLOPs printed beside 32c's measured peak device memory
+     and model flops, with no gate (the caching allocator is not
+     modelled). (c) In a one-rank NCCL world, the sharded prefill and 2
+     decode steps of 34's 2-layer model (`train.sharded.serve_rows`)
+     bit-equal to the unsharded ones under deterministic algorithms,
+     the float32 flash forward launched 2 x layers times (counters
+     zeroed just before, read just after). (d) `--all --both-meshes`
+     run in a subprocess, one process a core: every reference cell's
+     record, none an error, each with 256 or 512 devices, collective
+     bytes and a step-time bound above 0 and traced collective bytes
+     equal to the design's where it has one; its wall printed.
+
 Then one JSON line of kernels (the four PR-15 rows, the nine width rows
 of 14, flash attention at yi-9b's shape and at hubert's head dim 80, the
 flash backward at qwen2's training layer (its launches 32c's) and in
@@ -4002,6 +4022,8 @@ def kernel_split(torch, fn, calls: int = 4, windows: int = 3
 # (bf16) and 32b's card gradients (float32); and 32b's forward launches
 TRAIN_BWD_LAUNCHES: dict = {}
 TRAIN_FWD_LAUNCHES: dict = {}
+# 32c's measured peak device memory and model flops a step (phase 35b)
+TRAIN_32C: dict = {}
 
 
 def _rel_fro(torch, got, want) -> float:
@@ -4235,6 +4257,7 @@ def train_phase(torch, dev, card_line: str) -> None:
     med = statistics.median(secs[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = train_model_flops(cfg, tokens, TRAIN_SEQ)
+    TRAIN_32C.update(peak=peak, model_flops=flops)
     l0_err = abs(losses[0] - loss0) / abs(loss0)
     log(f"train: losses {losses} | grad norms {norms} | step seconds "
         f"{[round(x, 3) for x in secs]} (the first includes warm-up) | "
@@ -4556,7 +4579,8 @@ def sharded_train_phase(torch, dev, card_line: str) -> dict:
     the card; the gates of the module docstring. Returns the float32
     flash forward and backward launches of the three runs, every rank's
     (each process's counters zeroed just before its run, read just
-    after)."""
+    after), and each (c) rank's step collective bytes and held bytes
+    (for phase 35)."""
     from repro_torch import configs
     from repro_torch.data import DataConfig
     from repro_torch.dist import comm
@@ -4694,9 +4718,143 @@ def sharded_train_phase(torch, dev, card_line: str) -> dict:
         fail("sharded train: " + "; ".join(bad))
     log(f"sharded train: phase 34 took {time.perf_counter() - t_phase:.1f}"
         f" s")
-    return {k: sum(o["flash"][i] for outs in runs.values() for o in outs)
-            for i, k in enumerate(("flash_attention_f32",
-                                   "flash_attention_bwd_f32"))}
+    launches = {k: sum(o["flash"][i] for outs in runs.values() for o in outs)
+                for i, k in enumerate(("flash_attention_f32",
+                                       "flash_attention_bwd_f32"))}
+    return launches, [{k: o[k] for k in ("step_bytes", "held_bytes")}
+                      for o in runs["c"]]
+
+
+def dry_run_phase(torch, dev, shard_c: list, card_line: str) -> None:
+    """Phase 35: the dry run (`launch.dryrun`) against what the card ran.
+    (a) phase 34(c)'s program traced on a DryMesh for each rank, held to
+    that rank's counted step bytes and held bytes; (b) the dry run of
+    32c's step printed beside 32c's measured peak and model flops (no
+    gate: the caching allocator is not modelled); (c) a sharded prefill
+    and decode in a one-rank NCCL world, bit-equal to the unsharded ones
+    under deterministic algorithms; (d) the wall of the whole sweep."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import comm
+    from repro_torch.kernels import flashattn
+    from repro_torch.launch import dryrun
+    from repro_torch.train import sharded
+    t_phase = time.perf_counter()
+    full = configs.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SHARD_LAYERS,
+                              param_dtype="float32")
+    bad = []
+    # (a) every rank of 34(c): step bytes by kind and held bytes
+    shape = ShapeConfig("34c", SHARD_SEQ, SHARD_BATCH, "train")
+    row_groups = SHARD_SHAPE[0] * SHARD_SHAPE[1]
+    rows = (SHARD_BATCH // row_groups if SHARD_BATCH % row_groups == 0
+            else SHARD_BATCH)
+    batch = 2 * rows * SHARD_SEQ * 4         # int32 tokens and targets
+    for rank, got in enumerate(shard_c):
+        run, args, dry, arg_bytes, design, _ = dryrun.lm_program(
+            cfg, shape, SHARD_SHAPE, rank=rank, num_microbatches=1)
+        rec = dryrun.analyze(run, args, dry, arg_bytes, design, 0.0)
+        measured = [{k: v for k, v in step.items() if k != "staged"}
+                    for step in got["step_bytes"]]
+        held = got["held_bytes"]
+        log(f"dry run: (a) 34(c) rank {rank} traced in {rec['trace_s']} s "
+            f"on a DryMesh {SHARD_SHAPE}: step collective bytes "
+            f"{rec['collective_bytes']} (design {rec['design_bytes']}), "
+            f"34(c) measured {measured}; arguments {arg_bytes} = held "
+            f"params + moments {held['params'] + held['moments']} + batch "
+            f"rows {batch} + step 4; temp {rec['memory']['temp_size_in_bytes']}"
+            f" | {card_line}")
+        if any(rec["collective_bytes"] != m for m in measured):
+            bad.append(f"(a) rank {rank}: traced {rec['collective_bytes']} "
+                       f"against measured {measured}")
+        if arg_bytes - 4 - batch != held["params"] + held["moments"]:
+            bad.append(f"(a) rank {rank}: arguments {arg_bytes} against "
+                       f"held {held}")
+    # (b) 32c's step, one rank
+    run, args, dry, arg_bytes, _, meta = dryrun.lm_program(
+        full, ShapeConfig("32c", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        (1, 1, 1), num_microbatches=TRAIN_MB)
+    rec = dryrun.analyze(run, args, dry, arg_bytes, None, 0.0)
+    pred = rec["per_device_bytes_resident"]
+    peak = TRAIN_32C.get("peak")
+    log(f"dry run: (b) 32c's step ({TRAIN_ARCH}, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in {TRAIN_MB} microbatches, one rank) traced "
+        f"in {rec['trace_s']} s: predicted peak {pred / 1e9:.3f} GB "
+        f"(arguments {arg_bytes / 1e9:.3f} + temp "
+        f"{rec['memory']['temp_size_in_bytes'] / 1e9:.3f}) against 32c's "
+        f"measured peak device memory "
+        f"{(peak or float('nan')) / 1e9:.3f} GB; traced FLOPs "
+        f"{rec['flops_per_device']:.4e} a step against 32c's model flops "
+        f"{TRAIN_32C.get('model_flops', float('nan')):.4e} (ratio "
+        f"{rec['flops_per_device'] / TRAIN_32C.get('model_flops', 1):.3f})"
+        f"; no gate: the caching allocator is not modelled | {card_line}")
+    # (c) a sharded prefill and decode in a one-rank NCCL world
+    tokens = np.random.default_rng(TRAIN_SEED).integers(
+        0, cfg.vocab_size, (SHARD_BATCH, SHARD_SEQ))
+    torch.use_deterministic_algorithms(True)
+    comm.init_world("nccl", rank=0, world_size=1, device=dev)
+    try:
+        mesh = comm.Mesh((1, 1, 1), device=dev)
+        zero_counters()
+        out = sharded.serve_rows(mesh, cfg, TRAIN_SEED, tokens,
+                                 decode_steps=2)
+        torch.cuda.synchronize()
+        launched = flashattn.LAUNCHES_BY_D.get(cfg.hd, 0)
+    finally:
+        comm.close_world()
+        torch.use_deterministic_algorithms(False)
+    same = {"prefill": bool(torch.equal(*out["prefill"])),
+            "decode": all(torch.equal(a, b)
+                          for a, b in zip(*out["decode"])),
+            "cache": all(torch.equal(a, b) for a, b in zip(*out["cache"]))}
+    finite = bool(torch.isfinite(out["prefill"][0]).all())
+    log(f"dry run: (c) sharded prefill of {SHARD_BATCH} x {SHARD_SEQ} "
+        f"tokens and 2 decode steps on one NCCL rank against the "
+        f"unsharded steps, under deterministic algorithms: bit-equal "
+        f"{same}, finite {finite}, logits {tuple(out['prefill'][0].shape)};"
+        f" float32 flash launches {launched} (want {2 * SHARD_LAYERS})")
+    if not all(same.values()) or not finite:
+        bad.append(f"(c) sharded serving not bit-equal: {same}, finite "
+                   f"{finite}")
+    if launched != 2 * SHARD_LAYERS:
+        bad.append(f"(c) flash launches {launched}, not {2 * SHARD_LAYERS}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the whole sweep, one process a core
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "dryrun.jsonl")
+    jobs = os.cpu_count() or 1
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--both-meshes", "--jobs", str(jobs), "--out", path],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    recs = ([json.loads(ln) for ln in open(path)]
+            if os.path.exists(path) else [])
+    shutil.rmtree(tmp, ignore_errors=True)
+    want = 2 * len(dryrun.all_cells())
+    errors = [r for r in recs if "error" in r]
+    off = [(r["arch"], r["shape"], r["mesh"]) for r in recs
+           if "error" not in r and not (
+               r["n_devices"] in (256, 512)
+               and r["collective_per_device"]["total"] > 0
+               and r["step_time_bound_s"] > 0
+               and r.get("design_match", True))]
+    log(f"dry run: (d) --all --both-meshes with {jobs} processes: "
+        f"{len(recs)} records (want {want}), {len(errors)} errors, "
+        f"wall {wall:.1f} s, sum of trace_s "
+        f"{sum(r.get('trace_s', 0) for r in recs):.1f} s (host CPU: trace "
+        f"output, not card time)")
+    if res.returncode or len(recs) != want or errors or off:
+        bad.append(f"(d) sweep: exit {res.returncode}, {len(recs)} records, "
+                   f"errors {errors[:3]}, off {off[:3]}: "
+                   f"{res.stderr[-2000:]}")
+    if bad:
+        fail("dry run: " + "; ".join(bad))
+    log(f"dry run: phase 35 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def small_reference_check(torch, dev) -> None:
@@ -4838,7 +4996,11 @@ def main() -> None:
     curvature_phase(torch, dev, card_line)                    # phase 33
     gc.collect()
     torch.cuda.empty_cache()
-    shard_counts = sharded_train_phase(torch, dev, card_line)  # phase 34
+    shard_counts, shard_c = sharded_train_phase(torch, dev,
+                                                card_line)   # phase 34
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry_run_phase(torch, dev, shard_c, card_line)              # phase 35
     for r in rows:      # the launches at each row's width in phases 29, 30a
         r["serve_launches"] = serve_launches(
             r["name"], serve_counts[0],

@@ -2,19 +2,19 @@
 `benchmarks/run.py`.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--device cpu] \
-        [spmm tasops eigen safs subspace_io dist_e2e]
+        [spmm tasops eigen roofline safs subspace_io dist_e2e]
 
 Prints ``name,case,us_per_call,derived`` CSV, the reference's columns.
-`roofline` (ROADMAP.md queue 1 item 8) is not ported yet, and naming it
-raises. Runs on the CUDA card unless `--device cpu`.
+Runs on the CUDA card unless `--device cpu`; `roofline` reads the port's
+dry-run records (`launch.dryrun`) and runs nothing.
 """
 from __future__ import annotations
 
 import argparse
 import importlib
 
-MODULES = ("spmm", "tasops", "eigen", "safs", "subspace_io", "dist_e2e")
-NOT_PORTED = {"roofline": "ROADMAP.md queue 1 item 8"}
+MODULES = ("spmm", "tasops", "eigen", "roofline", "safs", "subspace_io",
+           "dist_e2e")
 
 
 def main(argv=None) -> None:
@@ -25,9 +25,6 @@ def main(argv=None) -> None:
                     help=f"any of {', '.join(MODULES)} (default: all)")
     args = ap.parse_args(argv)
     for name in args.benches:
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"bench {name!r} is not ported yet: {NOT_PORTED[name]}")
         if name not in MODULES:
             ap.error(f"unknown bench {name!r}")
     rows: list = []

@@ -1,8 +1,6 @@
 """Config registry of the port: the reference's ten architectures and the
-paper's own graph configs (copies of `repro.configs`).
-
-`ShapeConfig`, `SHAPES` and `shape_applicable` (the dry-run's input
-shapes) wait for the compile-analysis tooling, ROADMAP.md queue 1 item 8.
+paper's own graph configs, and the dry run's input shapes (copies of
+`repro.configs`).
 """
 from __future__ import annotations
 
@@ -10,7 +8,8 @@ import dataclasses
 
 from repro_torch.configs import flasheigen
 from repro_torch.configs.arctic_480b import CONFIG as arctic_480b
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
+                                      shape_applicable)
 from repro_torch.configs.grok_1_314b import CONFIG as grok_1_314b
 from repro_torch.configs.h2o_danube_3_4b import CONFIG as h2o_danube_3_4b
 from repro_torch.configs.hubert_xlarge import CONFIG as hubert_xlarge
@@ -70,4 +69,5 @@ def reduced(name: str) -> ArchConfig:
     )
 
 
-__all__ = ["ArchConfig", "ARCHS", "GRAPHS", "get", "reduced"]
+__all__ = ["ArchConfig", "ARCHS", "GRAPHS", "SHAPES", "ShapeConfig", "get",
+           "reduced", "shape_applicable"]

@@ -1,8 +1,8 @@
 """Architecture config schema: a copy of `repro.configs.base.ArchConfig`.
 
 The port keeps its own copy so that it imports nothing of the JAX
-package. `ShapeConfig` and `SHAPES` (the dry-run's input shapes) wait
-for the compile-analysis tooling, ROADMAP.md queue 1 item 8.
+package, with the dry run's input shapes (`ShapeConfig`, `SHAPES`,
+`shape_applicable`).
 """
 from __future__ import annotations
 
@@ -120,3 +120,28 @@ class ArchConfig:
         unused = (self.n_experts - self.top_k) * self.d_model * dff_e \
             * (3 if self.glu else 2)
         return self.param_count() - self.n_layers * unused
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether a (arch, shape) cell runs, with the skip reason."""
+    if not cfg.decoder and shape.kind == "decode":
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "pure full-attention arch; O(L²) infeasible at 524288"
+    return True, ""

@@ -126,37 +126,45 @@ def close_world() -> None:
         dist.destroy_process_group()
 
 
-class Mesh:
-    """A (pod, data, model) grid over the ranks of the current world.
+def group_lists(pod: int, data: int, model: int) -> Dict[str, list]:
+    """The rank lists of every group of each axis set of a (pod, data,
+    model) grid, in the order every rank creates them."""
+    return {
+        "rows": [[g * model + m for g in range(pod * data)]
+                 for m in range(model)],
+        "model": [[g * model + m for m in range(model)]
+                  for g in range(pod * data)],
+        "pod": [[(p * data + d) * model + m for p in range(pod)]
+                for d in range(data) for m in range(model)],
+        "nonpod": [[p * data * model + j for j in range(data * model)]
+                   for p in range(pod)],
+        "data": [[(p * data + d) * model + m for d in range(data)]
+                 for p in range(pod) for m in range(model)],
+    }
 
-    shape: (pod, data, model); its product must be the world size, or 1
-    when no world is initialized. `device` is where this rank computes
-    (`resolve_device`: the CUDA card unless `device="cpu"`).
-    """
+
+class _Grid:
+    """One rank's view of a (pod, data, model) grid: its coordinates, the
+    ranks of each of its groups, and the counts of its collectives. Shared
+    by `Mesh` (a world of processes) and `DryMesh` (a stand-in with no
+    process group), so that both count alike.
+
+    `bytes` adds, by kind, the bytes of each collective's whole tensor as
+    one rank sees it (the module docstring's convention); `calls` adds,
+    by (kind, axis set), [number of calls, those bytes], and
+    `group_ranks(axis)` names the ranks of that call's group."""
 
     axis_names = AXES
 
-    def __init__(self, shape: Sequence[int] = (1, 1, 1), *, device=None):
+    def __init__(self, shape: Sequence[int], rank: int):
         if len(shape) != 3 or min(shape) < 1:
             raise ValueError(f"mesh shape is (pod, data, model), got "
                              f"{tuple(shape)}")
         self.shape: Dict[str, int] = dict(zip(AXES, map(int, shape)))
         self.size = math.prod(self.shape.values())
-        if dist.is_initialized():
-            self.backend: Optional[str] = dist.get_backend()
-            self.rank, world = dist.get_rank(), dist.get_world_size()
-            if world != self.size:
-                raise ValueError(f"mesh {tuple(shape)} needs {self.size} "
-                                 f"ranks, the world has {world}")
-        elif self.size == 1:
-            self.backend, self.rank = None, 0
-        else:
-            raise RuntimeError(f"a mesh of {self.size} ranks needs a "
-                               "torch.distributed world: start it with "
-                               "comm.spawn or comm.init_world")
-        self.device = resolve_device(device)
-        if self.backend is not None:
-            check_backend(self.backend, self.device, self.size)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} of a {self.size}-rank mesh")
+        self.rank = rank
         pod, data, model = (self.shape[a] for a in AXES)
         self.r_groups, self.m_groups = pod * data, model
         self.g, self.m = divmod(self.rank, model)
@@ -165,25 +173,153 @@ class Mesh:
         self.coords: Dict[str, int] = {"pod": self.pod,
                                        "data": self.g % data,
                                        "model": self.m}
+        self._lists = group_lists(pod, data, model)
+        self._members: Dict[str, list] = {
+            axis: next(r for r in lists if self.rank in r)
+            for axis, lists in self._lists.items()}
+        self._members["all"] = list(range(self.size))
         self.bytes: Dict[str, int] = collections.Counter()
+        self.calls: Dict[tuple, list] = {}
+
+    def group_ranks(self, axis: str) -> list:
+        """The ranks of this rank's group over `axis`, in group order."""
+        return self._members[axis]
+
+    def reset_counters(self) -> None:
+        self.bytes.clear()
+        self.calls.clear()
+
+    def program_bytes(self) -> int:
+        """Bytes of the sharded program's collectives so far."""
+        return sum(self.bytes[k] for k in PROGRAM_KINDS)
+
+    def _count(self, kind: str, t: torch.Tensor) -> None:
+        self.bytes[kind] += t.numel() * t.element_size()
+
+    def _collective(self, kind: str, axis: str, nbytes: int) -> None:
+        """Count one collective of `nbytes` over `axis`'s group."""
+        self.bytes[kind] += nbytes
+        entry = self.calls.setdefault((kind, axis), [0, 0])
+        entry[0] += 1
+        entry[1] += nbytes
+
+    @staticmethod
+    def _nbytes(shape, dtype) -> int:
+        return math.prod(shape) * dtype.itemsize
+
+    @staticmethod
+    def _gathered(shape, n: int) -> tuple:
+        return (shape[0] * n,) + tuple(shape[1:])
+
+
+class DryMesh(_Grid):
+    """Rank `rank` of a mesh with no world behind it: every collective
+    returns a meta tensor of the shape the real call returns (the input
+    itself where `Mesh` returns it) and is counted as `Mesh` counts it.
+    `mesh` is a `launch.mesh.MeshShape` (a missing axis has size 1) or a
+    (pod, data, model) tuple. The dry run (`launch.dryrun`) traces the
+    port's sharded programs on it."""
+
+    backend = None
+
+    def __init__(self, mesh, rank: int = 0):
+        from repro_torch.launch.mesh import MeshShape, rank_grid
+        super().__init__(rank_grid(mesh) if isinstance(mesh, MeshShape)
+                         else tuple(mesh), rank)
+        self.device = torch.device("meta")
+
+    @staticmethod
+    def _meta(shape, dtype) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+    # each collective copies and lays out as `Mesh`'s does, so that a
+    # trace sees the same tensors
+    def all_gather(self, x: torch.Tensor, axis: str = "rows",
+                   dim: int = 0) -> torch.Tensor:
+        if dim:
+            return self.all_gather(x.movedim(dim, 0), axis).movedim(0, dim)
+        n = len(self._members[axis])
+        x = x.contiguous()
+        out = self._gathered(x.shape, n)
+        self._collective("all_gather", axis, self._nbytes(out, x.dtype))
+        return x if n == 1 else self._meta(out, x.dtype)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str = "model",
+                       dim: int = 0) -> torch.Tensor:
+        if dim:
+            return self.reduce_scatter(x.movedim(dim, 0), axis).movedim(
+                0, dim)
+        n = len(self._members[axis])
+        x = x.contiguous()
+        self._collective("reduce_scatter", axis,
+                         self._nbytes(x.shape, x.dtype))
+        if n == 1:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"reduce_scatter: {x.shape[0]} rows over {n} "
+                             "ranks")
+        return self._meta((x.shape[0] // n,) + tuple(x.shape[1:]), x.dtype)
+
+    def all_reduce(self, x: torch.Tensor, axis: str = "all",
+                   op: str = "sum") -> torch.Tensor:
+        if op not in ("sum", "max"):
+            raise KeyError(op)
+        self._collective("all_reduce", axis, self._nbytes(x.shape, x.dtype))
+        return self._meta(x.shape, x.dtype)
+
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        self._collective("broadcast", "all", self._nbytes(x.shape, x.dtype))
+        return x
+
+    def scatter(self, full, shard_shape, dtype=torch.float32) -> torch.Tensor:
+        shard_shape = tuple(shard_shape)
+        self._collective("scatter", "all",
+                         self._nbytes(shard_shape, dtype) * self.size)
+        return self._meta(shard_shape, dtype)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor | None:
+        self._collective("gather", "all",
+                         self._nbytes(x.shape, x.dtype) * self.size)
+        if self.rank:
+            return None
+        return self._meta(self._gathered(x.shape, self.size), x.dtype)
+
+
+class Mesh(_Grid):
+    """A (pod, data, model) grid over the ranks of the current world.
+
+    shape: (pod, data, model); its product must be the world size, or 1
+    when no world is initialized. `device` is where this rank computes
+    (`resolve_device`: the CUDA card unless `device="cpu"`).
+    """
+
+    def __init__(self, shape: Sequence[int] = (1, 1, 1), *, device=None):
+        if len(shape) != 3 or min(shape) < 1:
+            raise ValueError(f"mesh shape is (pod, data, model), got "
+                             f"{tuple(shape)}")
+        size = math.prod(shape)
+        if dist.is_initialized():
+            self.backend: Optional[str] = dist.get_backend()
+            rank, world = dist.get_rank(), dist.get_world_size()
+            if world != size:
+                raise ValueError(f"mesh {tuple(shape)} needs {size} "
+                                 f"ranks, the world has {world}")
+        elif size == 1:
+            self.backend, rank = None, 0
+        else:
+            raise RuntimeError(f"a mesh of {size} ranks needs a "
+                               "torch.distributed world: start it with "
+                               "comm.spawn or comm.init_world")
+        super().__init__(shape, rank)
+        self.device = resolve_device(device)
+        if self.backend is not None:
+            check_backend(self.backend, self.device, self.size)
         # every rank creates every group, in one order (torch.distributed
         # requires it); a group of one rank other than a one-rank world
         # needs no communicator (in a one-rank world the backend still
         # runs every collective)
         self._groups: Dict[str, object] = {}
-        specs = {
-            "rows": [[g * model + m for g in range(pod * data)]
-                     for m in range(model)],
-            "model": [[g * model + m for m in range(model)]
-                      for g in range(pod * data)],
-            "pod": [[(p * data + d) * model + m for p in range(pod)]
-                    for d in range(data) for m in range(model)],
-            "nonpod": [[p * data * model + j for j in range(data * model)]
-                       for p in range(pod)],
-            "data": [[(p * data + d) * model + m for d in range(data)]
-                     for p in range(pod) for m in range(model)],
-        }
-        for axis, lists in specs.items():
+        for axis, lists in self._lists.items():
             for ranks in lists:
                 if len(ranks) == self.size and self.backend is not None:
                     grp = dist.group.WORLD
@@ -202,16 +338,6 @@ class Mesh:
                 f"model={self.shape['model']} ({self.size} rank(s), backend "
                 f"{self.backend or 'none: one rank, no collective'}, "
                 f"{self.device})")
-
-    def reset_counters(self) -> None:
-        self.bytes.clear()
-
-    def program_bytes(self) -> int:
-        """Bytes of the sharded program's collectives so far."""
-        return sum(self.bytes[k] for k in PROGRAM_KINDS)
-
-    def _count(self, kind: str, t: torch.Tensor) -> None:
-        self.bytes[kind] += t.numel() * t.element_size()
 
     def _staging(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.device.type == "cuda"
@@ -241,9 +367,9 @@ class Mesh:
             return self.all_gather(x.movedim(dim, 0), axis).movedim(0, dim)
         grp, n = self._groups[axis]
         x = x.contiguous()
-        out_shape = (x.shape[0] * n,) + tuple(x.shape[1:])
-        self.bytes["all_gather"] += (math.prod(out_shape)
-                                     * x.element_size())
+        out_shape = self._gathered(x.shape, n)
+        self._collective("all_gather", axis, self._nbytes(out_shape,
+                                                          x.dtype))
         if grp is None:
             return x
         stage = self._staging(x)
@@ -261,7 +387,8 @@ class Mesh:
                 0, dim)
         grp, n = self._groups[axis]
         x = x.contiguous()
-        self._count("reduce_scatter", x)
+        self._collective("reduce_scatter", axis,
+                         self._nbytes(x.shape, x.dtype))
         if grp is None:
             return x
         if x.shape[0] % n:
@@ -278,7 +405,7 @@ class Mesh:
                    op: str = "sum") -> torch.Tensor:
         """Sum (or max) of every member's x; a new tensor, x untouched."""
         grp, n = self._groups[axis]
-        self._count("all_reduce", x)
+        self._collective("all_reduce", axis, self._nbytes(x.shape, x.dtype))
         out = x.clone(memory_format=torch.contiguous_format)
         if grp is None:
             return out
@@ -292,7 +419,7 @@ class Mesh:
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """Rank 0's x on every rank (x is overwritten on the others)."""
-        self._count("broadcast", x)
+        self._collective("broadcast", "all", self._nbytes(x.shape, x.dtype))
         if self.backend is None:
             return x
         if self._staging(x):
@@ -309,9 +436,8 @@ class Mesh:
         r to rank r. Only rank 0 passes `full`; every rank gets its
         (shard_shape) tile on its device."""
         shard_shape = tuple(shard_shape)
-        self.bytes["scatter"] += (math.prod(shard_shape) * self.size
-                                  * torch.empty((), dtype=dtype)
-                                  .element_size())
+        self._collective("scatter", "all",
+                         self._nbytes(shard_shape, dtype) * self.size)
         if self.backend is None:
             return full.reshape(shard_shape).to(self.device, dtype)
         tiles = None
@@ -332,7 +458,8 @@ class Mesh:
         """Every rank's x concatenated along dim 0 on rank 0 (None on the
         others)."""
         x = x.contiguous()
-        self.bytes["gather"] += x.numel() * x.element_size() * self.size
+        self._collective("gather", "all",
+                         self._nbytes(x.shape, x.dtype) * self.size)
         if self.backend is None:
             return x
         stage = self._staging(x)

@@ -63,6 +63,7 @@ from repro_torch.dist.comm import Mesh
 from repro_torch.dist.dspmm import (CHUNK, CompressedPanel, Panel, _groups,
                                     build_dspmm, build_eigen_step,
                                     build_eigen_step_compressed,
+                                    design_bytes,
                                     pack_compressed_panels, pack_local_panel)
 from repro_torch.obs import trace
 
@@ -279,18 +280,13 @@ class DistOperator:
         return fn
 
     def _expect(self, b: int, x_bytes: int, nb_v: int = 0) -> None:
-        """Add one SpMM at width b (X's values of x_bytes each) and, with
-        nb_v, one step's four reductions: per SpMM n_pad/M·b values
-        gathered and n_pad/R·b float32 reduced; CGS2 two (nb_v·b, b) and
-        CholQR2 two (b, b) float32 sums (pod-compressed: each a sum over
-        the other axes, a max and an int32 sum over pod)."""
-        r_groups, m_groups = _groups(self.mesh)
-        self.analytic_bytes["all_gather"] += self.n // m_groups * b * x_bytes
-        self.analytic_bytes["reduce_scatter"] += self.n // r_groups * b * 4
-        if nb_v:
-            words = 2 * nb_v * b * b + 2 * b * b
-            self.analytic_bytes["all_reduce"] += (
-                2 * words * 4 + 4 * 4 if self.pod_compressed else words * 4)
+        """Add one SpMM, or with nb_v one fused step, to the design's
+        count (`dspmm.design_bytes`)."""
+        for kind, n in design_bytes(self.n, *_groups(self.mesh), b=b,
+                                    x_bytes=x_bytes, nb_v=nb_v,
+                                    pod_compressed=self.pod_compressed
+                                    ).items():
+            self.analytic_bytes[kind] += n
 
     def _matmat_shards(self, x, b: int):
         self._expect(b, 4)

@@ -34,6 +34,8 @@ to its Pallas tile kernel, here onto `csrc/spmm_tile.cu`.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 import torch
 
@@ -305,12 +307,44 @@ class CompressedPanel:
         self.stream_bytes = sum(t.numel() * t.element_size() for t in
                                 (self.packed, self.bases, self.vals))
 
+    @classmethod
+    def meta(cls, e_pad: int, n_chunks: int, n_rows: int):
+        """A stream of e_pad edges in n_chunks chunks on the meta device
+        (shapes and types only), as the dry run traces it."""
+        self = cls.__new__(cls)
+        meta = torch.device("meta")
+        self.packed = torch.empty(e_pad, dtype=torch.int32, device=meta)
+        self.bases = torch.empty(2 * n_chunks, dtype=torch.int32,
+                                 device=meta)
+        self.vals = torch.empty(e_pad, dtype=torch.bfloat16, device=meta)
+        self.n_rows = n_rows
+        self.stream_bytes = e_pad * 6 + 8 * n_chunks
+        return self
+
     def contract(self, x_m: torch.Tensor) -> torch.Tensor:
         pr, pc = _unpack_edges(self.packed, self.bases)
-        contrib = self.vals.float()[:, None] * x_m[pc.long()].float()
-        y = torch.zeros((self.n_rows, x_m.shape[1]), dtype=torch.float32,
-                        device=x_m.device)
-        return y.index_add_(0, pr.long(), contrib)
+        return kops.coo_spmm(pr, pc, self.vals.float(), x_m, self.n_rows)
+
+
+class MetaPanel:
+    """A panel of e_loc edges on the meta device, as the dry run traces
+    it: endpoint and value arrays of the reference's panel shapes,
+    contracted as the reference's step contracts them (a gather of X's
+    rows and a scatter-add, `kops.coo_spmm`). A `Panel` on the card runs
+    the block kernel over the blocks dense enough for it and this path
+    over the rest; which split a graph gets is known only from its
+    edges."""
+
+    def __init__(self, e_loc: int, n_rows: int):
+        meta = torch.device("meta")
+        self.rows = torch.empty(e_loc, dtype=torch.int32, device=meta)
+        self.cols = torch.empty(e_loc, dtype=torch.int32, device=meta)
+        self.vals = torch.empty(e_loc, dtype=torch.float32, device=meta)
+        self.n_rows = n_rows
+
+    def contract(self, x_m: torch.Tensor) -> torch.Tensor:
+        return kops.coo_spmm(self.rows, self.cols, self.vals, x_m,
+                             self.n_rows)
 
 
 # ---------------------------------------------------------- local kernels
@@ -368,6 +402,25 @@ def _cgs2_cholqr2(w_loc: torch.Tensor, v_loc: torch.Tensor, mesh, *,
         q = kops.tsgemm(q, linv_t.contiguous())
         r = ell.T @ r
     return q, h.reshape(nb_v * b, b), r
+
+
+# ------------------------------------------------------------------ count
+def design_bytes(n_pad: int, r_groups: int, m_groups: int, *, b: int,
+                 x_bytes: int, nb_v: int = 0,
+                 pod_compressed: bool = False) -> Dict[str, int]:
+    """The design's collective bytes on one rank (`comm.Mesh.bytes`'
+    convention) of one SpMM at width b, X's values x_bytes each, and with
+    nb_v of one fused step's four reductions: per SpMM n_pad/M·b values
+    gathered and n_pad/R·b float32 reduced; CGS2 two (nb_v·b, b) and
+    CholQR2 two (b, b) float32 sums (pod-compressed: each a sum over the
+    other axes, a max and an int32 sum over pod)."""
+    out = {"all_gather": n_pad // m_groups * b * x_bytes,
+           "reduce_scatter": n_pad // r_groups * b * 4}
+    if nb_v:
+        words = 2 * nb_v * b * b + 2 * b * b
+        out["all_reduce"] = (2 * words * 4 + 4 * 4 if pod_compressed
+                             else words * 4)
+    return out
 
 
 # ------------------------------------------------------------------ build

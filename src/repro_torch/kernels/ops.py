@@ -5,7 +5,10 @@ tensor launches the hand-written kernel, and raises if the kernel does
 not build or launch; a CPU tensor takes the plain PyTorch version.
 `impl="ref"` forces the plain version on any device (tests and
 chip_smoke.py compare with it). There is no fallback from a CUDA tensor
-to the plain version.
+to the plain version. A meta tensor (the dry run's trace) takes each
+kernel's shape-only path (`kernels.meta`): outputs of the kernel's shapes
+and its flop count, and neither a launch nor the plain version's
+intermediates.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from repro_torch.graphs.tiles import TiledMatrix
 from repro_torch.kernels import flashattn as _flash_kernel
 from repro_torch.kernels import gram as _gram_kernel
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import spmm_tile as _spmm_kernel
 from repro_torch.kernels import tsgemm as _tsgemm_kernel
 from repro_torch.kernels.flashattn_ref import (attention_ref,
@@ -35,6 +39,12 @@ def _use_kernel(impl: Impl, t: torch.Tensor) -> bool:
     if impl == "auto":
         return t.device.type == "cuda"
     raise ValueError(f"unknown impl {impl!r}; expected auto | ref")
+
+
+def _shape_only(impl: Impl, t: torch.Tensor) -> bool:
+    """Whether a call takes the kernel's shape-only path: a meta tensor
+    under impl "auto"."""
+    return impl == "auto" and t.device.type == "meta"
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +83,8 @@ def spmm_blocks(blocks: torch.Tensor, block_cols: torch.Tensor,
     image's work plan for the kernel (`spmm_tile.plan`, built once per
     image); the kernel builds one from row_ptr when none is given, and
     the plain version ignores it."""
+    if _shape_only(impl, x):
+        return _meta.spmm_blocks(blocks, block_cols, row_ptr, x)
     if _use_kernel(impl, x):
         return _spmm_kernel.spmm_blocksparse(blocks, block_cols, row_ptr, x,
                                              plan=plan)
@@ -100,6 +112,16 @@ def spmm(tm: TiledMatrix, x: torch.Tensor, *,
     return y
 
 
+def coo_spmm(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+             x: torch.Tensor, n_rows: int, *,
+             impl: Impl = "auto") -> torch.Tensor:
+    """The COO side path, Y = Σ vals·X[cols] into `rows`: plain PyTorch
+    (`coo_spmm_ref`) on every device but meta, where it is shape-only."""
+    if _shape_only(impl, x):
+        return _meta.coo_spmm(rows, cols, vals, x, n_rows)
+    return coo_spmm_ref(rows, cols, vals, x, n_rows)
+
+
 # ---------------------------------------------------------------------------
 # TAS dense ops
 # ---------------------------------------------------------------------------
@@ -108,6 +130,8 @@ def tsgemm(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
            beta: float = 0.0, c0: torch.Tensor | None = None,
            impl: Impl = "auto") -> torch.Tensor:
     """C = alpha*A@B + beta*C0 (MvTimesMatAddMv)."""
+    if _shape_only(impl, a):
+        return _meta.tsgemm(a, b, c0 if beta != 0.0 else None)
     if not _use_kernel(impl, a):
         return tsgemm_ref(a, b, alpha=alpha, beta=beta, c0=c0)
     return _tsgemm_kernel.tsgemm(a, b, c0 if beta != 0.0 else None,
@@ -117,6 +141,8 @@ def tsgemm(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
 def gram(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
          impl: Impl = "auto") -> torch.Tensor:
     """G = alpha*AᵀB (MvTransMv)."""
+    if _shape_only(impl, a):
+        return _meta.gram(a, b)
     if not _use_kernel(impl, a):
         return gram_ref(a, b, alpha=alpha)
     return _gram_kernel.gram(a, b, alpha=alpha)
@@ -140,14 +166,16 @@ class _FlashAttention(torch.autograd.Function):
     terms come from the inputs q, k, v and dO alone."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, use_kernel: bool):
-        if use_kernel:
+    def forward(ctx, q, k, v, causal: bool, route: str):
+        if route == "kernel":
             out, lse = _flash_kernel.flash_attention_lse(q, k, v,
                                                          causal=causal)
+        elif route == "meta":
+            out, lse = _meta.flash_attention(q, k, v, causal)
         else:
             out, lse = attention_ref_lse(q, k, v, causal=causal)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.use_kernel = causal, use_kernel
+        ctx.causal, ctx.route = causal, route
         return out
 
     @staticmethod
@@ -156,7 +184,7 @@ class _FlashAttention(torch.autograd.Function):
         if do.stride(-1) != 1:     # e.g. the expanded ones of a sum
             do = do.contiguous()
         dq, dk, dv = _FlashAttentionGrad.apply(
-            q, k, v, out.detach(), lse, do, ctx.causal, ctx.use_kernel)
+            q, k, v, out.detach(), lse, do, ctx.causal, ctx.route)
         return dq, dk, dv, None, None
 
 
@@ -167,7 +195,8 @@ class _FlashAttentionGrad(torch.autograd.Function):
     second-order terms recompute them from q, k, v.
 
     forward: the hand-written backward kernels on a CUDA tensor, the
-    plain backward on the CPU (the first-order product, as before).
+    plain backward on the CPU (the first-order product, as before), the
+    kernels' shape-only path on a meta tensor.
     backward: the second-order terms, by autograd through the plain
     attention `attention_ref`, on every device. This route is plain on
     purpose: the reference has no kernel for it either (JAX
@@ -176,11 +205,13 @@ class _FlashAttentionGrad(torch.autograd.Function):
     raises instead of returning values (`_NoThirdDerivative`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, out, lse, do, causal: bool, use_kernel: bool):
-        bwd = (_flash_kernel.flash_attention_bwd if use_kernel
-               else flash_attention_bwd_ref)
+    def forward(ctx, q, k, v, out, lse, do, causal: bool, route: str):
         ctx.save_for_backward(q, k, v, do)
         ctx.causal = causal
+        if route == "meta":
+            return _meta.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        bwd = (_flash_kernel.flash_attention_bwd if route == "kernel"
+               else flash_attention_bwd_ref)
         return bwd(q, k, v, out, lse, do, causal=causal)
 
     @staticmethod
@@ -230,11 +261,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     row LSE, the backward is a kernel too on a CUDA tensor), and a
     second derivative takes its terms through the plain attention
     (`_FlashAttentionGrad`). Otherwise (serving) it is the forward alone,
-    as it always was."""
-    use_kernel = _use_kernel(impl, q)
+    as it always was. On a meta tensor both directions are the kernels'
+    shape-only path (`kernels.meta`)."""
+    route = ("meta" if _shape_only(impl, q) else
+             "kernel" if _use_kernel(impl, q) else "ref")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, use_kernel)
-    if use_kernel:
+        return _FlashAttention.apply(q, k, v, causal, route)
+    if route == "kernel":
         return _flash_kernel.flash_attention(q, k, v, causal=causal)
+    if route == "meta":
+        return _meta.flash_attention(q, k, v, causal)[0]
     return attention_ref(q, k, v, causal=causal)

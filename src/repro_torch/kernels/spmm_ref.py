@@ -44,6 +44,12 @@ def coo_spmm_ref(coo_rows: torch.Tensor, coo_cols: torch.Tensor,
     return out.index_add_(0, coo_rows.long(), contrib)
 
 
+def spmm_dense_ref(a_dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """End-to-end dense oracle for whole-matrix comparisons: A·X with
+    float32 products and sums."""
+    return torch.matmul(a_dense.float(), x.float())
+
+
 def spmm_f64(blocks: torch.Tensor, block_cols: torch.Tensor,
              row_ptr: torch.Tensor, coo: tuple, x: torch.Tensor,
              chunk: int = 1 << 16) -> tuple:

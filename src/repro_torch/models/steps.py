@@ -19,7 +19,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.models.modules import dtype_of, lm_logits
+from repro_torch.models.modules import dtype_of
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import warmup_cosine
 
@@ -109,31 +109,41 @@ def build_train_step(cfg: ArchConfig, *, num_microbatches: int = 1,
     return train_step
 
 
-def build_prefill_step(cfg: ArchConfig, *, device=None):
+def build_prefill_step(cfg: ArchConfig, *, device=None, sharding=None):
     """(params, batch) → logits f32: (B, S, V), or (B, 1, V) with
     cfg.prefill_last_only (serving samples only the last position, so the
     vocab head need not project every position). The batch holds
     "tokens", or "frames" (B, S, D) for an audio frontend, and
-    "image_embeds" (B, n_img, D) for a patch frontend."""
+    "image_embeds" (B, n_img, D) for a patch frontend. Given a
+    `train.sharded.Sharding`, params are this rank's blocks, gathered on
+    use, and the step keeps this rank's rows of the batch (B is then the
+    rank's rows): as `build_train_step` does, it splits storage, not
+    FLOPs."""
+    gather = None if sharding is None else sharding.gather
 
     def prefill_step(params, batch):
+        if sharding is not None:
+            batch = sharding.local_batch(batch)
         enc = batch.get("image_embeds")
         inp = (batch["frames"] if cfg.frontend == "audio"
                else batch["tokens"])
-        if cfg.prefill_last_only and cfg.decoder:
-            h = tf.forward(params, cfg, inp, encoder=enc, device=device)
-            return lm_logits(cfg, params, h[:, -1:])
-        return tf.logits_fn(params, cfg, inp, encoder=enc, device=device)
+        return tf.logits_fn(params, cfg, inp, encoder=enc, device=device,
+                            gather=gather,
+                            last_only=cfg.prefill_last_only and cfg.decoder)
 
     return prefill_step
 
 
-def build_decode_step(cfg: ArchConfig, *, device=None):
+def build_decode_step(cfg: ArchConfig, *, device=None, sharding=None):
     """(params, cache, token (B,1), pos) → (logits (B,1,V), cache); the
-    cache is updated in place."""
+    cache is updated in place. Given a `train.sharded.Sharding`, params
+    are this rank's blocks, gathered on use, and cache and token hold
+    this rank's rows."""
+    gather = None if sharding is None else sharding.gather
 
     def decode(params, cache, token, pos):
-        return tf.decode_step(params, cfg, cache, token, pos, device=device)
+        return tf.decode_step(params, cfg, cache, token, pos, device=device,
+                              gather=gather)
 
     return decode
 

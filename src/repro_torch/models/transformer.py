@@ -279,10 +279,12 @@ def _forward(params, cfg, inputs, encoder, device, gather):
 
 
 def logits_fn(params, cfg, inputs, *, encoder=None, device=None,
-              gather=None):
+              gather=None, last_only: bool = False):
+    """Logits f32 (B, S, V); (B, 1, V) of the last position alone with
+    `last_only` (the head projects no other position)."""
     params = _gather_top(params, gather)
-    return lm_logits(cfg, params, _forward(params, cfg, inputs, encoder,
-                                           device, gather))
+    h = _forward(params, cfg, inputs, encoder, device, gather)
+    return lm_logits(cfg, params, h[:, -1:] if last_only else h)
 
 
 def loss_fn(params, cfg, batch, *, device=None, gather=None):
@@ -369,14 +371,27 @@ def _require_decoder(cfg) -> None:
                          f"embedding and no decode step")
 
 
-def decode_step(params, cfg: ArchConfig, cache, token, pos, *, device=None):
+def decode_step(params, cfg: ArchConfig, cache, token, pos, *, device=None,
+                gather=None):
     """One new token against the cache. token (B,1) int; pos its position.
-    Returns (logits (B,1,V) f32, cache); the cache is updated in place."""
+    Returns (logits (B,1,V) f32, cache); the cache is updated in place.
+    `gather` is `forward`'s hook: the leaves outside the stack are
+    gathered once, each super-layer's blocks just before it runs."""
     _require_decoder(cfg)
+    params = _gather_top(params, gather)
     x = embed_tokens(params["embed"], _on(token, device))
     pos = int(pos)
-    for (kind, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
-        x = _apply_layer_decode(cfg, p, kind, x, c, pos)
+    caches = _layers(cache, cfg)
+    for n in range(cfg.n_super):
+        sp = _layer(params["stack"], n)
+        if gather is not None:
+            sp = gather("stack", sp)
+        for i, kind in enumerate(cfg.pattern):
+            x = _apply_layer_decode(cfg, sp[f"l{i}"], kind, x,
+                                    next(caches)[1], pos)
+    for i, p in enumerate(params["rem"]):
+        x = _apply_layer_decode(cfg, p, cfg.pattern[i], x, next(caches)[1],
+                                pos)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x), cache
 

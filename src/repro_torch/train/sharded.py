@@ -310,3 +310,38 @@ def clip_full(mesh, grads, specs, max_norm: float):
                                                                places)]
     clipped, norm = global_norm_clip(blocks, places, mesh, max_norm)
     return norm, clipped
+
+
+def serve_rows(mesh, cfg, seed: int, tokens, decode_steps: int = 2) -> dict:
+    """The sharded prefill and decode steps (`build_prefill_step` and
+    `build_decode_step` with a `Sharding`) beside the unsharded ones, on
+    this rank's rows of the global batch `tokens` (B, S): the model drawn
+    from `seed`, prefill logits of every row, then `decode_steps` decode
+    steps fed the rows' first tokens, against an empty cache of
+    S + decode_steps positions. Sharding gathers the parameters on use, so each pair
+    should be the same bits."""
+    from repro_torch.models import steps as S
+    dev = mesh.device
+    shards = Sharding(cfg, mesh)
+    full = tf.init_model(seed, cfg, device=dev)
+    blocks = shards.shard_params(full)
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    local = shards.local_batch(batch)
+    rows, seq = local["tokens"].shape
+    out: Dict[str, Any] = {}
+    with torch.no_grad():
+        out["prefill"] = (S.build_prefill_step(cfg, sharding=shards)(
+            blocks, batch), S.build_prefill_step(cfg)(full, local))
+        steps = (S.build_decode_step(cfg, sharding=shards),
+                 S.build_decode_step(cfg))
+        states = (blocks, full)
+        caches = [tf.init_cache(cfg, rows, seq + decode_steps, device=dev)
+                  for _ in steps]
+        out["decode"] = ([], [])
+        for pos in range(decode_steps):
+            tok = local["tokens"][:, pos:pos + 1]
+            for i, step in enumerate(steps):
+                logits, caches[i] = step(states[i], caches[i], tok, pos)
+                out["decode"][i].append(logits)
+    out["cache"] = tuple(adamw.tree_leaves(c) for c in caches)
+    return out

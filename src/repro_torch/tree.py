@@ -59,41 +59,44 @@ def flatten_with_paths(tree: Any) -> Tuple[List[str], List[Any], Any]:
     `treedef` is the tree itself, the template `unflatten` refills."""
     names: List[str] = []
     leaves: List[Any] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (str(k),))
-        elif is_namedtuple(node):
-            for f, child in zip(node._fields, node):
-                walk(child, path + ("." + f,))
-        elif isinstance(node, (list, tuple)):
-            for i, child in enumerate(node):
-                walk(child, path + (str(i),))
-        else:
-            names.append("/".join(path))
-            leaves.append(node)
-
-    walk(tree, ())
+    _walk(tree, (), names, leaves)
     return names, leaves, tree
+
+
+def _walk(node, path, names, leaves) -> None:
+    # a module function, as `_build` is: no reference cycle holds `leaves`
+    if node is None:
+        return
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _walk(node[k], path + (str(k),), names, leaves)
+    elif is_namedtuple(node):
+        for f, child in zip(node._fields, node):
+            _walk(child, path + ("." + f,), names, leaves)
+    elif isinstance(node, (list, tuple)):
+        for i, child in enumerate(node):
+            _walk(child, path + (str(i),), names, leaves)
+    else:
+        names.append("/".join(path))
+        leaves.append(node)
 
 
 def unflatten(treedef: Any, leaves: List[Any]) -> Any:
     """`treedef`'s structure (a tree, as `flatten_with_paths` returns it)
     holding `leaves` in its order."""
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if is_namedtuple(node):
-            return type(node)(*(build(c) for c in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        return next(it)
 
-    return build(treedef)
+def _build(node, it):
+    # a module function, not a closure that calls itself: such a closure
+    # is a reference cycle that would keep `leaves` alive until the
+    # garbage collector runs
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if is_namedtuple(node):
+        return type(node)(*(_build(c, it) for c in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(c, it) for c in node)
+    return next(it)

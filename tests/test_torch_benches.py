@@ -276,10 +276,16 @@ def test_run_prints_the_reference_csv_columns(subio_smoke, monkeypatch,
     assert lines[0] == "name,case,us_per_call,derived"
     assert [ln.split(",")[0] for ln in lines[1:]] == [
         "subspace_io_expand", "subspace_io_compress", "subspace_io_e2e"]
-    assert run.MODULES == ("spmm", "tasops", "eigen", "safs", "subspace_io",
-                           "dist_e2e")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        run.main(["roofline"])
+    assert run.MODULES == ("spmm", "tasops", "eigen", "roofline", "safs",
+                           "subspace_io", "dist_e2e")
+    # roofline reads the port's dry-run records and runs nothing
+    run.main(["--device", "cpu", "roofline"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "name,case,us_per_call,derived"
+    assert len(lines) > 1 and all(ln.startswith("roofline")
+                                  for ln in lines[1:])
+    with pytest.raises(SystemExit):
+        run.main(["--device", "cpu", "no_such_bench"])
 
 
 def test_run_dist_e2e_smoke_keeps_the_reference_contract(capsys):

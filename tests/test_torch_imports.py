@@ -75,7 +75,10 @@ def test_import_loads_no_jax_and_no_reference_module():
               "repro_torch.optim.schedule", "repro_torch.ft.straggler",
               "repro_torch.ft.coordinator", "repro_torch.train",
               "repro_torch.train.trainer", "repro_torch.launch.train",
-              "repro_torch.examples.train_lm"):
+              "repro_torch.examples.train_lm", "repro_torch.kernels.meta",
+              "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+              "repro_torch.utils", "repro_torch.utils.collective_cost",
+              "repro_torch.benchmarks.bench_roofline"):
         assert m in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -111,7 +114,10 @@ def test_sources_import_no_jax_and_no_reference_module():
                 "dist/comm.py", "dist/compress.py", "dist/dspmm.py",
                 "dist/dist_operator.py", "dist/__init__.py",
                 "examples/dist_eigen_e2e.py",
-                "benchmarks/bench_dist_e2e.py"):
+                "benchmarks/bench_dist_e2e.py", "kernels/meta.py",
+                "launch/dryrun.py", "launch/roofline.py",
+                "utils/collective_cost.py", "utils/__init__.py",
+                "benchmarks/bench_roofline.py"):
         assert os.path.join(PORT, mod) in paths, mod
     offenders = []
     for path in paths:

@@ -69,3 +69,31 @@ def test_tree_unflatten_round_trips_the_state():
     ref = ref_adamw.init(_params())
     ref = ref._replace(m=jax.tree_util.tree_map(np.ones_like, ref.m))
     _same(back, ref)
+
+
+def test_flatten_and_unflatten_leave_no_reference_cycle():
+    """`tree.flatten_with_paths` and `tree.unflatten` hold their leaves in
+    no reference cycle: a leaf dies with its last reference, without the
+    garbage collector (gathered parameters in sharded training are
+    freed as soon as their layer drops them)."""
+    import gc
+    import weakref
+    from repro_torch.tree import flatten_with_paths, unflatten
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        t = torch.zeros(3)
+        ref = weakref.ref(t)
+        names, leaves, treedef = flatten_with_paths({"a": t, "b": [None]})
+        assert names == ["a"] and leaves[0] is t
+        del names, leaves, treedef, t      # (the treedef is the tree)
+        assert ref() is None
+        t = torch.zeros(3)
+        ref = weakref.ref(t)
+        out = unflatten({"a": 0, "b": [None, 1]}, [t, t])
+        assert out["b"][1] is t
+        del out, t
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()

@@ -19,7 +19,13 @@ built in one order on every rank:
     not split over (1, 4, 1)'s four row groups (every rank keeps it all);
   * the (1, 2, 2) run's checkpoint restored onto (1, 4, 1) and (1, 1, 4);
   * the clip of a gradient tree whose replicated leaf dominates the norm;
-  * a (1, 2, 2) run preempted after its first step and restarted.
+  * a (1, 2, 2) run preempted after its first step and restarted;
+  * the sharded prefill and decode steps beside the unsharded ones on
+    each rank's rows (`sharded.serve_rows`), which must be the same bits.
+
+The dry run (`launch.dryrun`) traces the (1, 2, 2) run's step on a
+`DryMesh` for each rank, and its counts must equal what that rank's
+`Mesh` counted.
 
 Tolerances (those of tests/test_torch_train.py, with their reasons):
 losses and grad norms rtol 1e-4 (float32 sums in another order, after
@@ -68,6 +74,8 @@ PARAM_TOL = 2 * LR * STEPS + 1e-5
 # (run, config, mesh, global batch rows)
 RUNS = {"a22": (CFG, (1, 2, 2), 8), "a41": (CFG, (1, 4, 1), 8),
         "f22": (FSDP, (1, 2, 2), 8), "rep41": (CFG, (1, 4, 1), 6)}
+# the global batch of the sharded prefill and decode: 4 rows of 12 tokens
+SERVE_TOKENS = np.random.default_rng(7).integers(0, CFG.vocab_size, (4, 12))
 
 
 def quiet(*_):
@@ -132,6 +140,7 @@ def world(tmp_path_factory):
          (CFG, _tcfg(root, "k22"), _data(8)), {"log": SignalAt(0)}),
         ((1, 2, 2), launch_train.rank_main,
          (CFG, _tcfg(root, "k22"), _data(8)), {"log": quiet}),
+        ((1, 2, 2), sharded.serve_rows, (CFG, 0, SERVE_TOKENS, 2), {}),
     ]
     out = comm.spawn(comm.run_calls, (1, 2, 2), backend="gloo",
                      device="cpu", args=(calls,), timeout=900,
@@ -348,3 +357,45 @@ def test_launcher_trains_on_a_world_and_refuses_a_wrong_backend(tmp_path):
     assert ckpt.latest_step(str(tmp_path / "ck")) == 2
     with pytest.raises(ValueError, match="nccl"):
         launch_train.main(argv[:-1] + ["nccl"])
+
+
+def test_sharded_prefill_and_decode_are_bit_equal(world):
+    """On every rank, the prefill logits of its 2 rows, 2 decode steps'
+    logits and the whole cache after them equal the unsharded steps'
+    on the same rows, bit for bit."""
+    _, out = world
+    for rank in range(4):
+        got = out[rank][-1]
+        sharded_prefill, plain_prefill = got["prefill"]
+        assert sharded_prefill.shape == (2, 12, CFG.vocab_size)
+        np.testing.assert_array_equal(sharded_prefill, plain_prefill)
+        assert len(got["decode"][0]) == 2
+        for a, b in zip(*got["decode"]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(*got["cache"]):
+            np.testing.assert_array_equal(a, b)
+    # the row groups saw different rows
+    assert not np.array_equal(out[0][-1]["prefill"][0],
+                              out[2][-1]["prefill"][0])
+
+
+def test_dry_run_counts_what_each_rank_counted(world):
+    """The a22 run's step traced on a (1, 2, 2) DryMesh for each rank:
+    collective bytes by kind equal what that gloo rank's `Mesh` counted
+    in every step, and the arguments its held blocks, its batch rows and
+    the step counter."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    _, out = world
+    cfg, shape, rows = RUNS["a22"]
+    for rank in range(4):
+        got = out[rank][list(RUNS).index("a22")]
+        run, args, dry, arg_bytes, design, _ = dryrun.lm_program(
+            cfg, ShapeConfig("a22", 16, rows, "train"), shape, rank=rank,
+            num_microbatches=TKW["num_microbatches"])
+        rec = dryrun.analyze(run, args, dry, arg_bytes, design, 1.0)
+        for step in got["step_bytes"]:
+            assert rec["collective_bytes"] == step
+        held = got["held_bytes"]
+        assert arg_bytes == held["params"] + held["moments"] + 4 + \
+            2 * (rows // 2) * 16 * 4
